@@ -20,9 +20,35 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      seed 0) plus the 3 production cells of tests/test_chem_production.py,
      1e-8 -> 1e3 yr; the kernels' launch counts over this run must be > 0,
      and the final states must be finite, physical and conserve elements;
-  6. 8 of those lanes re-solved with the plain LU on the card: key species
-     within 5%.
-The second-to-last lines are the kernels' JSON record and the card's
+  6. 8 of those lanes re-solved with the plain LU on the card: key
+     species within 5% of phase 5's final states;
+  7. kernel K3 (the Monte Carlo packet walk) against its plain version on
+     the card: the production-shaped disk of bench.py (TW Hya-like,
+     ncol=200, <=10000 cells, one silicate component, L_X=1e30,
+     McConfig(nlen_lut=256, n_quantile=128)) with a warm Tdust(r)
+     profile, B=262144 packets taken evenly from the 1e6-packet ladder
+     and launched from one torch.Generator seed, one 64-step chunk each
+     way; lanes agreeing on status, cell and e_count >= 99%, equal RNG
+     words on live agreeing lanes, flux and mrw_path totals within 1e-3,
+     and on the agreeing lanes every bin of every tally channel the walk
+     writes within 1e-4 of the channel's largest bin; CUDA-event times of
+     the chunk (plain, kernel, kernel, plain);
+  8. kernel K4 (the terminal tally fold) against its plain version on the
+     lanes phase 7 retired: collector bins within 1e-5 of the largest;
+  9. the slice: DiskModel(cfg, device="cuda").prepare() and
+     run_mc(n_passes=2, nph=1_000_000) on that disk (streamed pass, batch
+     262144, refill and compaction tail); per pass the wall time,
+     packets/s, chunks, refills, K3/K4 launches, the tail of <= 64 live
+     lanes, fates and Tdust range; every packet counted, premature and
+     still active at the step cap <= 1e-3, Tdust finite inside
+     [TdustMin, TdustMax], flux finite and >= 0, K3/K4 launched;
+ 10. the second pass re-run at nph=65536 (one batch, no refill, at most
+     8192 steps) with the kernels and with the plain walk and fold, from
+     the same cells and generator seed: median |dTdust|/Tdust < 3% over
+     active cells, total absorbed energy in active cells within 2%.
+Phases 5-6 run to T_MAX (1e2 yr) to leave time for the MC phases.
+The second-to-last lines are the kernels' JSON record (K1, K2 and one line
+for each TPU probe kernel that K3 or K4 replaces) and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -36,7 +62,7 @@ import torch
 
 D2G = 2.8e-12
 W = 256
-T_MAX = 1e3
+T_MAX = 1e2
 RTOL0, ATOL0 = 1e-4, 1e-30
 # production cells (tests/test_chem_production.py COUPLED_CELLS)
 COUPLED_CELLS = [
@@ -48,6 +74,28 @@ COUPLED_CELLS = [
 K1_REPLACES = "rac2d_tpu/ops/pallas/blocklu_pallas.py:235"
 K2_REPLACES = "rac2d_tpu/ops/pallas/blocklu_pallas.py:278"
 SOURCE = "rac2d_torch/csrc/blocklu.cu"
+MC_SOURCE = "rac2d_torch/csrc/mcwalk.cu"
+# the TPU probe kernels (each function that reaches pl.pallas_call) and
+# the kernel of this package that takes their place
+PROBES = [
+    ("P1-A", "tools/probe_pallas2.py:42", "mc_walk"),
+    ("P1-B", "tools/probe_pallas2.py:67", "mc_walk"),
+    ("P1-C", "tools/probe_pallas2.py:102", "fold_terminal"),
+    ("P1-D", "tools/probe_pallas2.py:141", "mc_walk"),
+    ("P1-E", "tools/probe_pallas2.py:181", "mc_walk"),
+    ("P2-a", "tools/probe_pallas3.py:37", "mc_walk"),
+    ("P2-b", "tools/probe_pallas3.py:61", "mc_walk"),
+    ("P2-c", "tools/probe_pallas3.py:85", "mc_walk"),
+    ("P2-d", "tools/probe_pallas3.py:119", "mc_walk"),
+    ("P3-1", "tools/probe_pallas_gather.py:50", "mc_walk"),
+    ("P3-2", "tools/probe_pallas_gather.py:74", "mc_walk"),
+    ("P3-3", "tools/probe_pallas_gather.py:98", "mc_walk"),
+    ("P3-4", "tools/probe_pallas_gather.py:122", "mc_walk"),
+    ("P3-5", "tools/probe_pallas_gather.py:163", "mc_walk"),
+    ("P3-6", "tools/probe_pallas_gather.py:194", "mc_walk"),
+]
+MC_BATCH = 262_144
+MC_STEPS = 64
 
 
 def say(msg):
@@ -295,29 +343,304 @@ def run_slice(dev, n_bench=512, width=W, t_max=T_MAX):
     if fail.sum() > 0.05 * N:
         raise Fail("phase 5: more than 5% of the lanes failed")
 
+    # phase 6: 8 of those lanes re-solved with the plain LU, held against
+    # phase 5's final states (the pool keeps no earlier record)
     t0 = time.time()
     pick = np.concatenate([np.arange(N - 3, N),
                            np.nonzero(ok[:N - 3])[0][:5]])
     sel = torch.as_tensor(pick, device=dev)
-    out_b = ode.solve_pool(tree_map(lambda a: a[sel], envs), y0b[sel],
-                           T0t[sel], touts, rtol, atol, width=len(pick),
-                           tenvs=tree_map(lambda a: a[sel], tenvs),
-                           lu_backend="block", **kw)
-    yb = out_b.ys[:, -1].numpy()
+    res = ode.solve_pool(
+        tree_map(lambda a: a[sel], envs), y0b[sel], T0t[sel], touts, rtol,
+        atol, width=len(pick), tenvs=tree_map(lambda a: a[sel], tenvs),
+        lu_backend="block", **kw)
+    yb = res.ys[:, -1].numpy()
     ki = net.key_species_idx
     worst = 0.0
     for j, i in enumerate(pick):
-        if fail[i] or bool(out_b.fail[j]):
+        if fail[i] or bool(res.fail[j]):
             raise Fail(f"phase 6: lane {i} failed (kernel {fail[i]}, "
-                       f"plain {bool(out_b.fail[j])})")
+                       f"plain {bool(res.fail[j])})")
         big = np.abs(yb[j, ki]) > 1e-12
         rel = np.abs(yf[i, ki] - yb[j, ki])[big] / np.abs(yb[j, ki])[big]
         worst = max(worst, float(rel.max()))
-    say(f"phase 6 plain LU re-solve of {len(pick)} lanes: worst key-species "
-        f"rel diff {worst:.3e} (tol 5e-2), {time.time() - t0:.1f} s")
+    say(f"phase 6 plain LU re-solve of {len(pick)} lanes to {t_max:g} yr "
+        f"against phase 5's final states: worst key-species rel diff "
+        f"{worst:.3e} (tol 5e-2), {time.time() - t0:.1f} s")
     if not worst < 0.05:
-        raise Fail("phase 6: kernel and plain LU runs disagree")
+        raise Fail("phase 6: the slice and the plain LU re-solve disagree")
     return launches
+
+
+# --------------------------------------------------------------------
+# the Monte Carlo dust pass (phases 7-10)
+
+MC_NPH = 1_000_000        # packets per pass (bench.py: 4e6 in production)
+MC_NPH_CHECK = 65_536     # phase 10: one batch, no refill
+# phase 10's step cap: the plain walk costs about 0.5 s per 64-step chunk
+# at any width, and a few lanes per pass loop until the 100000-step cap
+# (phase 9 prints them as "active"); both walks stop at the same step
+MC_STEPS_CHECK = 8192
+
+
+def bench_disk(dev):
+    """The production-shaped disk of bench.py:76-104 (build_bench_model)
+    on the card."""
+    from rac2d_torch import defaults
+    from rac2d_torch.models import density, driver
+    from rac2d_torch.models.grid import GridConfig
+    from rac2d_torch.ops import optics
+    cfg = driver.DiskConfig(
+        star_mass=0.6, star_radius=1.0, star_T=4000.0, lumi_Xray=1e30,
+        andrews=density.AndrewsDisk(Md=0.01, rin=1.0, rout=100.0, rc=50.0,
+                                    hc=10.0),
+        grid=GridConfig(rmin=1.0, rmax=100.0, zmax=100.0, ncol=200,
+                        max_num_of_cells=10_000),
+        dust=[driver.DustComponent(opti_files=[defaults.SILICATE_OPTI],
+                                   weights=[1.0], d2g_mass=0.01)],
+        network_file=defaults.NETWORK, enthalpy_file=defaults.ENTHALPIES,
+        init_abundances_file=defaults.INIT_ABUNDANCES,
+        h2o_cross_file=defaults.H2O_PHOTOXS,
+        mc=optics.McConfig(nph=MC_NPH, nlen_lut=256, n_quantile=128),
+        nph_per_pass=MC_NPH, n_mc_passes=2)
+    m = driver.DiskModel(cfg, dev)
+    m.prepare()
+    return m
+
+
+def walk_kw(m):
+    mc = m.mc_cfg
+    return dict(nmax_encounter=mc.nmax_encounter, use_mrw=mc.use_mrw,
+                mrw_gamma=mc.mrw_gamma, mrw_lam_min=mc.mrw_lam_min,
+                save_dir=mc.save_dir_flux,
+                save_counts=mc.save_counts or mc.do_fill_blank)
+
+
+def event_ms(fn, reps):
+    """Mean CUDA-event milliseconds of fn(), each rep on fresh inputs
+    (fn builds them before it starts the clock through `start`)."""
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        fn(e0)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return float(np.mean(out))
+
+
+def check_walk(m, dev):
+    """Phase 7: K3 against _walk_plain on one 64-step chunk."""
+    from rac2d_torch.ops import kernels, mcrt
+    t0 = time.time()
+    # a warm Tdust(r) so that re-emission and MRW run: 150 K (r/AU)^-1/2
+    tdust = np.clip(150.0 * m.r_cells ** -0.5, 10.0, 1500.0)[None, :]
+    cells = m.mc_cells()._replace(Tdust=torch.as_tensor(tdust, device=dev))
+    model = mcrt.McModel(m.tab, m.gi, cells, m.cfg.star_mass)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    lam, en, _ = m.packet_pool(MC_NPH)
+    pick = np.linspace(0, len(lam) - 1, MC_BATCH).astype(np.int64)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pk0 = mcrt.launch_packets(model, gen, torch.as_tensor(lam[pick],
+                                                          device=dev),
+                              torch.as_tensor(en[pick], device=dev), 0.0,
+                              m.cfg.maxw)
+    nlam = len(m.tab.lam)
+
+    def zeros():
+        return mcrt.McTallies.zeros(m.grid.n_cells, nlam, m.n_dust, 5,
+                                    device=dev)
+
+    kw = walk_kw(m)
+    pk_k, pk_p, tk, tp = pk0.clone(), pk0.clone(), zeros(), zeros()
+    na_k = int(kernels.mc_walk(ws, pk_k, tk, MC_STEPS, **kw))
+    na_p = int(mcrt._walk_plain(ws, pk_p, tp, MC_STEPS, **kw))
+    torch.cuda.synchronize()
+    agree = (pk_k.status == pk_p.status) & (pk_k.cell == pk_p.cell) \
+        & (pk_k.e_count == pk_p.e_count)
+    share = float(agree.float().mean())
+    live = agree & (pk_k.status == mcrt.ST_ACTIVE)
+    rng_eq = all(torch.equal(getattr(pk_k, f)[live], getattr(pk_p, f)[live])
+                 for f in ("rs0", "rs1", "rs2", "rs3"))
+    diffs = {}
+    for f in ("x", "y", "z", "lam", "tau"):
+        a, b = getattr(pk_k, f)[agree], getattr(pk_p, f)[agree]
+        diffs[f] = float(((a - b).abs() / b.abs().clamp_min(1e-3)).max())
+    tot = {f: (float(getattr(tk, f).double().sum()),
+               float(getattr(tp, f).double().sum()))
+           for f in ("flux", "mrw_path")}
+    rel = {f: abs(a - b) / max(abs(b), 1e-30) for f, (a, b) in tot.items()}
+    fates = mcrt.packet_fates(pk_k.status)
+    say(f"phase 7 K3 walk: B={MC_BATCH}, {MC_STEPS} steps, {m.grid.n_cells} "
+        f"cells ({int(m.grid.using.sum())} active), nlam {nlam}; active "
+        f"after: kernel {na_k}, plain {na_p}; kernel fates {fates}")
+    say(f"phase 7 agreement: status+cell+e_count on {share:.6f} of lanes "
+        f"(tol 0.99); RNG words equal on {int(live.sum())} live agreeing "
+        f"lanes: {rng_eq}; max rel diff on agreeing lanes (|ref| floored "
+        f"at 1e-3) " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+    say(f"phase 7 tallies: flux total kernel {tot['flux'][0]:.6e} plain "
+        f"{tot['flux'][1]:.6e} (rel {rel['flux']:.2e}), mrw_path "
+        f"{tot['mrw_path'][0]:.6e} / {tot['mrw_path'][1]:.6e} (rel "
+        f"{rel['mrw_path']:.2e}), tol 1e-3")
+    # every bin of every tally channel the walk writes, on the agreeing
+    # lanes (a lane's tallies never feed back into its walk, so the
+    # agreeing lanes re-walked alone add what they added before)
+    if not bool(agree.all()):
+        sub = pk0.take(agree)
+        pk_k, pk_p, tk, tp = sub.clone(), sub.clone(), zeros(), zeros()
+        kernels.mc_walk(ws, pk_k, tk, MC_STEPS, **kw)
+        mcrt._walk_plain(ws, pk_p, tp, MC_STEPS, **kw)
+    fields = ["flux", "mrw_path"]
+    fields += ["phc", "en_gain_abso", "cr_count"] if kw["save_counts"] else []
+    fields += ["dir_flux"] if kw["save_dir"] else []
+    bins = {}
+    for f in fields:
+        a, b = getattr(tk, f), getattr(tp, f)
+        d = float((a - b).abs().max())
+        bins[f] = (d, d / max(float(b.abs().max()), 1e-30))
+    err = max(d for d, _ in bins.values())
+    say(f"phase 7 per-bin tallies on {int(agree.sum())} agreeing lanes: max "
+        f"|kernel - plain| / max |plain|: " + ", ".join(
+            f"{f} {r:.2e} (abs {d:.2e})" for f, (d, r) in bins.items())
+        + " (tol 1e-4)")
+
+    def run(walk):
+        def fn(e0):
+            pk, tl = pk0.clone(), zeros()
+            torch.cuda.synchronize()
+            e0.record()
+            walk(ws, pk, tl, MC_STEPS, **kw)
+        return fn
+
+    p_a = event_ms(run(mcrt._walk_plain), 2)
+    k_a = event_ms(run(kernels.mc_walk), 5)
+    k_b = event_ms(run(kernels.mc_walk), 5)
+    p_b = event_ms(run(mcrt._walk_plain), 2)
+    say(f"phase 7 times, one {MC_STEPS}-step chunk at B={MC_BATCH}: kernel "
+        f"{k_a:.3f}/{k_b:.3f} ms, plain {p_a:.1f}/{p_b:.1f} ms")
+    say(f"phase 7 done: {time.time() - t0:.1f} s")
+    if not (share >= 0.99 and rng_eq and rel["flux"] <= 1e-3
+            and rel["mrw_path"] <= 1e-3
+            and all(r <= 1e-4 for _, r in bins.values())):
+        raise Fail("phase 7: K3 disagrees with its plain version")
+    return dict(model=model, pk=pk_k, zeros=zeros, err=err,
+                ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2)
+
+
+def check_fold(model, pk, zeros, **_):
+    """Phase 8: K4 against _fold_terminal_plain on phase 7's lanes."""
+    from rac2d_torch.ops import kernels, mcrt
+    t0 = time.time()
+    tk, tp = zeros(), zeros()
+    kernels.fold_terminal(model, pk, tk, 5)
+    mcrt._fold_terminal_plain(model, pk, tp, 5)
+    torch.cuda.synchronize()
+    rels, err = {}, 0.0
+    for f in ("collector", "collector_img", "ab_en_water"):
+        d = (getattr(tk, f) - getattr(tp, f)).abs().max()
+        err = max(err, float(d))
+        rels[f] = float(d / getattr(tp, f).abs().max().clamp_min(1e-30))
+    n_esc = int((pk.status == mcrt.ST_ESCAPED).sum())
+    n_wat = int((pk.status == mcrt.ST_DESTR_WATER).sum())
+    say(f"phase 8 K4 fold: {pk.x.shape[0]} lanes, {n_esc} escaped, {n_wat} "
+        f"water-destroyed; max |diff| / max |plain|: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in rels.items()) + " (tol 1e-5)")
+
+    def run(fold):
+        def fn(e0):
+            tl = zeros()
+            torch.cuda.synchronize()
+            e0.record()
+            fold(model, pk, tl, 5)
+        return fn
+
+    p_a = event_ms(run(mcrt._fold_terminal_plain), 5)
+    k_a = event_ms(run(kernels.fold_terminal), 20)
+    k_b = event_ms(run(kernels.fold_terminal), 20)
+    p_b = event_ms(run(mcrt._fold_terminal_plain), 5)
+    say(f"phase 8 times at B={pk.x.shape[0]}: kernel {k_a:.4f}/{k_b:.4f} "
+        f"ms, plain {p_a:.3f}/{p_b:.3f} ms; {time.time() - t0:.1f} s")
+    if not max(rels.values()) <= 1e-5:
+        raise Fail("phase 8: K4 disagrees with its plain version")
+    return dict(err=err, ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2)
+
+
+def run_mc_slice(m):
+    """Phase 9: two Lucy passes through DiskModel.run_mc."""
+    from rac2d_torch.ops import kernels, mcrt
+    t0 = time.time()
+    kernels.reset_launches()
+    m.run_mc(n_passes=2, nph=MC_NPH)
+    torch.cuda.synchronize()
+    launches = (kernels.mc_walk.launches, kernels.fold_terminal.launches)
+    wall = time.time() - t0
+    for ip, st in enumerate(m.mc_stats):
+        f = st["fates"]
+        say(f"phase 9 pass {ip + 1}: {st['packets']} packets in "
+            f"{st['wall_s']:.2f} s = {st['packets'] / st['wall_s']:.0f} "
+            f"packets/s; {st['chunks']} walk chunks, {st['refills']} "
+            f"refills, {st['compactions']} compactions; K3 "
+            f"{st['k3_launches']}, K4 {st['k4_launches']} launches; tail of "
+            f"<= {mcrt.TAIL_LANES} live lanes {st['tail_chunks']} chunks in "
+            f"{st['tail_s']:.3f} s; fates {f}; Tdust over active cells "
+            f"{st['tdust_active'][0]:.2f}..{st['tdust_active'][1]:.2f} K")
+        # a packet still walking at the pass's step cap (100000) stays
+        # "active", as in the JAX package; it counts with the premature
+        if sum(f.values()) != st["packets"]:
+            raise Fail(f"phase 9: pass {ip + 1} did not count every packet")
+        if f["premature"] + f["active"] > 1e-3 * st["packets"]:
+            raise Fail(f"phase 9: pass {ip + 1}: too many premature packets")
+    say(f"phase 9 launches: K3 {launches[0]}, K4 {launches[1]}; "
+        f"{wall:.1f} s")
+    use = m.grid.using
+    T = m.Tdust[use]
+    cfg = m.mc_cfg
+    flux = m.tallies.flux
+    if not (np.isfinite(T).all() and T.min() >= cfg.TdustMin
+            and T.max() <= cfg.TdustMax):
+        raise Fail("phase 9: Tdust outside [TdustMin, TdustMax]")
+    if not (bool(torch.isfinite(flux).all()) and float(flux.min()) >= 0.0):
+        raise Fail("phase 9: flux not finite or negative")
+    if min(launches) <= 0:
+        raise Fail("phase 9: the pass did not go through both kernels")
+    return launches
+
+
+def recheck_plain(m):
+    """Phase 10: the second pass again, kernels against the plain walk
+    and fold, at MC_NPH_CHECK packets and MC_STEPS_CHECK steps."""
+    t0 = time.time()
+    cells = m.mc_stats[1]["cells"]
+    out = {}
+    for walk in ("kernel", "plain"):
+        tall, fates, st = m.mc_pass(1, MC_NPH_CHECK, cells, walk=walk,
+                                    max_steps=MC_STEPS_CHECK)
+        out[walk] = (m.reduce(tall, cells), tall, st)
+        say(f"phase 10 {walk}: {st['packets']} packets in "
+            f"{st['wall_s']:.2f} s, {st['steps']} steps in {st['chunks']} "
+            f"chunks, "
+            f"{st['refills']} refills, fates {fates}")
+        if st["refills"]:
+            raise Fail("phase 10: the check pass refilled")
+    use = torch.as_tensor(m.grid.using, device=cells.rmin.device)
+    Tk = out["kernel"][0].Tdust[use]
+    Tp = out["plain"][0].Tdust[use]
+    rel = ((Tk - Tp).abs() / Tp).cpu().numpy()
+    # cells outside the disk (no gas, no dust) hold NaN en_gain in both
+    # packages (the f32 blanketing factor at d2h = 0); sum the active ones
+    ek = float(out["kernel"][1].en_gain[:, use].sum())
+    ep = float(out["plain"][1].en_gain[:, use].sum())
+    de = abs(ek - ep) / ep
+    n_bad = [int((~torch.isfinite(out[w][1].en_gain)).any(0).sum())
+             for w in ("kernel", "plain")]
+    say(f"phase 10 non-finite en_gain: kernel {n_bad[0]}, plain {n_bad[1]} "
+        f"cells, of {int((~use).sum())} inactive")
+    say(f"phase 10 |dTdust|/Tdust over {int(use.sum())} active cells: "
+        f"median {np.median(rel):.4f}, p90 {np.percentile(rel, 90):.4f} "
+        f"(tol median 0.03); absorbed energy kernel {ek:.6e} plain "
+        f"{ep:.6e} erg/s, rel {de:.4f} (tol 0.02); {time.time() - t0:.1f} s")
+    if not (np.median(rel) < 0.03 and de < 0.02):
+        raise Fail("phase 10: kernel and plain passes disagree")
 
 
 def main():
@@ -337,6 +660,7 @@ def main():
             or torch.backends.cudnn.allow_tf32:
         say("FAIL phase 1: TF32 is on")
         return 1
+    rows = []
     try:
         # ---- 2. build ----
         t0 = time.time()
@@ -346,26 +670,43 @@ def main():
             if "ptxas info" in line and ("Used" in line
                                          or "Compiling" in line):
                 say("  " + line.strip())
-        # ---- 3, 4. kernels vs plain, times ----
+        # ---- 3, 4. K1/K2 vs plain, times; 5, 6. the chemistry slice ----
         chk = check_kernels(dev)
         tm = time_kernels(**chk)
         del chk["A"], chk["b"], chk["fac"], chk["ref"]
-        # ---- 5, 6. the slice ----
         launches = run_slice(dev)
+        rows += [
+            {"name": "blocklu_factor", "route": "cuda", "source": SOURCE,
+             "replaces": K1_REPLACES, "launches": launches[0],
+             "max_abs_err": chk["err_fac"], "ms": tm["k1_ms"],
+             "plain_ms": tm["k1_plain"]},
+            {"name": "blocklu_solve", "route": "cuda", "source": SOURCE,
+             "replaces": K2_REPLACES, "launches": launches[1],
+             "max_abs_err": chk["err_x"], "ms": tm["k2_ms"],
+             "plain_ms": tm["k2_plain"]}]
+        # ---- 7-10. the Monte Carlo dust pass ----
+        t0 = time.time()
+        m = bench_disk(dev)
+        say(f"phase 7 setup: bench disk prepared in {time.time() - t0:.1f} s")
+        k3 = check_walk(m, dev)
+        k4 = check_fold(**k3)
+        del k3["pk"], k3["model"]
+        mc_launches = run_mc_slice(m)
+        recheck_plain(m)
+        res = {"mc_walk": (k3, mc_launches[0]),
+               "fold_terminal": (k4, mc_launches[1])}
+        for row, replaces, name in PROBES:
+            r, n = res[name]
+            rows.append({"name": f"{name} ({row})", "route": "cuda",
+                         "source": MC_SOURCE, "replaces": replaces,
+                         "launches": n, "max_abs_err": r["err"],
+                         "ms": r["ms"], "plain_ms": r["plain_ms"]})
     except Fail as e:
         say(f"FAIL {e}")
         return 1
 
     say(f"total {time.time() - t_all:.1f} s")
-    say(json.dumps({"kernels": [
-        {"name": "blocklu_factor", "route": "cuda", "source": SOURCE,
-         "replaces": K1_REPLACES, "launches": launches[0],
-         "max_abs_err": chk["err_fac"], "ms": tm["k1_ms"],
-         "plain_ms": tm["k1_plain"]},
-        {"name": "blocklu_solve", "route": "cuda", "source": SOURCE,
-         "replaces": K2_REPLACES, "launches": launches[1],
-         "max_abs_err": chk["err_x"], "ms": tm["k2_ms"],
-         "plain_ms": tm["k2_plain"]}]}))
+    say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

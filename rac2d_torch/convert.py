@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .io.umist import ChemNet
+from .ops import geometry, mcrt, optics
 from .ops.network import Incidence
 from .ops.rates import CellEnv, RateTables
 from .ops.thermal import HcConfig, ThermalBalance, ThermalEnv
@@ -83,3 +84,45 @@ def thermal_balance(tb, device="cpu") -> ThermalBalance:
             setattr(out, name, t(getattr(tb, name)))
     out.i_gH63 = int(tb.i_gH63)
     return out
+
+
+def mc_tables(tab) -> optics.McTables:
+    """The JAX package's McTables (host numpy) as this package's."""
+    seg = optics.LamSeg(*(np.array(v) if np.ndim(v) else v
+                          for v in tab.lam_seg))
+    return optics.McTables(*(np.array(v) for v in tab[:-1]), lam_seg=seg)
+
+
+def grid_index(gi, device="cpu") -> geometry.GridIndex:
+    """GridIndex with the same tables (f32 packed ones stay f32)."""
+    out = {}
+    for f in geometry.GridIndex._fields:
+        v = getattr(gi, f)
+        if v is None or isinstance(v, (int, float)):
+            out[f] = v
+        else:
+            a = np.array(v)
+            out[f] = torch.as_tensor(a, device=device)
+    return geometry.GridIndex(**out)
+
+
+def mc_cells(cells, device="cpu") -> mcrt.McCells:
+    return _namedtuple(cells, mcrt.McCells, device)
+
+
+def packets(pk, device="cpu") -> mcrt.Packets:
+    """Packets with float32/int32 arrays; the uint32 RNG words keep
+    their bits as int32."""
+    out = {}
+    for f in mcrt.Packets._fields:
+        a = np.array(getattr(pk, f))
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[f] = torch.as_tensor(a, device=device)
+    return mcrt.Packets(**out)
+
+
+def mc_tallies(t, device="cpu") -> mcrt.McTallies:
+    """McTallies in the dtype the JAX object has (f32 during a pass)."""
+    return mcrt.McTallies(*(torch.as_tensor(np.array(v), device=device)
+                            for v in t))

@@ -1,0 +1,679 @@
+// Monte Carlo dust transport for NVIDIA Hopper (sm_90a): the packet walk
+// (K3, mc_walk_kernel) and the terminal tally fold (K4,
+// fold_terminal_kernel), f32, with a plain C interface for ctypes
+// (wrappers, argument checks and the struct mirrors:
+// rac2d_torch/ops/kernels.py; plain PyTorch twins: rac2d_torch/ops/mcrt.py
+// _walk_plain and _fold_terminal_plain).
+//
+// What they replace.  The JAX package's walk, rac2d_tpu/ops/mcrt.py
+// _mc_walk (:349-829), is plain JAX: each step is a batch of indexed ops
+// under lax.scan, with the tallies leaving the loop as an event log that
+// is scattered after the scan (:744-815), because an in-loop scatter was
+// slow on the TPU.  The TPU toolchain probes tools/probe_pallas2.py,
+// probe_pallas3.py and probe_pallas_gather.py (P1-P3) measured the
+// primitives of that walk as Pallas kernels: row and flat gathers of the
+// cell/optics/re-emission tables, chains of dependent gathers inside one
+// kernel, in-kernel RNG, and scatter-adds.  Here those primitives are what
+// one CUDA thread does per packet: indexed loads through the read-only
+// path, the step loop inside the kernel, xorshift128 in registers, and
+// atomicAdd into the tallies inside the step (no event log).  K4 computes
+// _fold_terminal (:832-897): the escape collector (P1-C's scatter shape),
+// the image-plane bins and the water deposit.
+//
+// Semantics.  K3 computes what _mc_walk(..., finalize=False) computes for
+// max_steps steps, per lane, in the same f32 operation order (built with
+// --fmad=false and without fast math): the xorshift128 + Knuth scramble
+// stream with 10 draws per step, the event-channel running sum in the
+// JAX channel order, truncating float->int conversions, first-true event
+// selection.  Unlike JAX, a lane leaves the loop once it is no longer
+// ST_ACTIVE, so a dead lane's RNG words stop advancing (they are never
+// read again).  Tallies are added in another order than the JAX fold, so
+// they agree to f32 roundoff, not bit for bit.
+//
+// What bounds them on this card, and what the design does about it.
+//   K3 is latency- and divergence-bound: per step a lane reads one
+//   cell row (C floats), one optics row (K floats), one Lyman-alpha
+//   pair, one re-emission wavelength and two locate rows (a binary
+//   search over the column's z ladder), all from tables of a few MB that
+//   stay in the 50 MB L2, and then branches on its own event.  The design
+//   gives each packet a thread and keeps its whole state in registers for
+//   the launch, so a chunk of 64 steps costs one read and one write of the
+//   packet arrays; the tables go through __ldg.  Warp-coherent event
+//   handling, shared-memory tables and lane sorting are later work.
+//   K4 is one pass over the batch: the collector [n_mu, nlam] is binned in
+//   a per-CTA shared-memory histogram and merged with global atomics; the
+//   image-plane bins and the water deposit take global atomics (few lanes
+//   are terminal with those fates).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// The argument structs are outside the anonymous namespace: the exported
+// C functions take them.
+// Field for field the Python mirror kernels._WalkArgs.
+struct WalkArgs {
+  float *x, *y, *z, *vx, *vy, *vz, *lam, *en, *tau;
+  int *cell, *status, *e_count;
+  unsigned *rs0, *rs1, *rs2, *rs3;
+  const float *cellmat, *tabmat, *lya_pair, *reemit_lam, *mrw_lnx,
+      *r_lut_pack, *zc_pack;
+  float *flux, *mrw_path, *phc, *en_gain_abso, *cr_count, *dir_flux;
+  int* n_active;
+  int B, max_steps, n_cells, nlam, n_dust, C, K, nT, n_quantile, n_mrw,
+      n_tlya, n_lut, ncol, max_nz, nmax_encounter, use_mrw, save_counts,
+      save_dir;
+  int seg_i0[3], seg_n[3];
+  int lya_i0, lya_n2;
+  float lam_lo, lam_hi, xr_lo, xr_hi, lnT0, inv_dlnT, td_cold, lnT_lo_lya,
+      inv_dlnT_lya, mrw_gamma, mrw_lam_min, star_k, r_lut_log0, r_lut_inv_d,
+      rmin_dom, rmax_dom, zmax_dom;
+  float seg_log0[3], seg_inv_d[3];
+  float b_mid, b_lya, b_high, lya_a, lya_inv_d, lya_K, lam0, lya_xmin;
+};
+
+// Field for field the Python mirror kernels._FoldArgs.
+struct FoldArgs {
+  const float *x, *y, *z, *vx, *vy, *vz, *lam, *en;
+  const int *cell, *status;
+  float *collector, *collector_img, *ab_en_water;
+  double seg_log0[3], seg_inv_d[3];
+  double b_mid, b_lya, b_high;
+  int B, nlam, n_mu, n_r, n_phi, n_cells;
+  int seg_i0[3], seg_n[3];
+  int lya_i0, lya_n2;
+  float lya_a, lya_inv_d, lya_K, lam0, lya_xmin, r0, log_ratio;
+};
+
+namespace {
+
+constexpr int ST_ACTIVE = 0, ST_ESCAPED = 1, ST_DESTRUCTED = 2,
+              ST_PREMATURE = 3, ST_DESTR_WATER = 5;
+constexpr int MAX_DUST = 4;
+constexpr int WALK_THREADS = 128;
+constexpr int FOLD_THREADS = 256;
+constexpr float AU2CM = 1.49597871e13f;
+constexpr float C_CGS = 2.99792458e10f;
+constexpr float FL_BIG = 1e30f, MIN_LEN = 1e-30f, MIN_VZ = 1e-20f;
+constexpr float MIN_VXY = 1e-30f, MIN_LEN_FRAC = 1e-6f;
+constexpr float F32_ULP8 = 8.0f * 1.1920928955078125e-07f;
+constexpr float TWO_PI = 6.283185307179586f;
+constexpr float PI_F = 3.141592653589793f;
+constexpr float PI2 = 9.869604401089358f;
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+
+// Marsaglia xorshift128 + Knuth multiplicative scramble, top 24 bits.
+struct Xorshift {
+  uint32_t s0, s1, s2, s3;
+  __device__ __forceinline__ float next() {
+    uint32_t t = s3 ^ (s3 << 11);
+    t = t ^ (t >> 8);
+    t = t ^ s0 ^ (s0 >> 19);
+    s3 = s2;
+    s2 = s1;
+    s1 = s0;
+    s0 = t;
+    return (float)((t * 2654435761u) >> 8) * (1.0f / 16777216.0f);
+  }
+};
+
+// The Lyman-alpha ladder part of lam_to_bin (f32 in both callers).
+template <class A>
+__device__ __forceinline__ int lya_bin(const A& a, float lam) {
+  float dl = a.lam0 - lam;
+  float adx = fabsf(dl) * a.lya_K * (a.lam0 / lam);
+  float t = (log10f(fmaxf(adx, 1e-30f)) - a.lya_a) * a.lya_inv_d;
+  int n2 = a.lya_n2;
+  int m_pos = (int)clampf(ceilf(t), 0.f, (float)(n2 - 1));
+  int k_pos = n2 - 1 - m_pos;
+  int m_neg = (int)clampf(floorf(t), 0.f, (float)(n2 - 1));
+  int k_neg = adx < a.lya_xmin ? n2 - 1 : n2 + m_neg;
+  return a.lya_i0 + (dl > 0.f ? k_pos : k_neg);
+}
+
+// lam_to_bin with the segment constants in f32 (the walk).
+__device__ int lam_to_bin32(const WalkArgs& a, float lam) {
+  float ll = logf(fmaxf(lam, 1e-30f));
+  auto lu = [&](int k) {
+    int j = (int)floorf((ll - a.seg_log0[k]) * a.seg_inv_d[k]);
+    return a.seg_i0[k] + clampi(j, 0, a.seg_n[k] - 1);
+  };
+  int i = lu(0);
+  if (lam >= a.b_mid) i = lu(1);
+  if (lam >= a.b_lya) i = lya_bin(a, lam);
+  if (lam >= a.b_high) i = lu(2);
+  return i;
+}
+
+// lam_to_bin with the segment constants in f64 (the terminal fold reads
+// the host tables' f64 values, as JAX's _fold_terminal does).
+__device__ int lam_to_bin64(const FoldArgs& a, float lam) {
+  double ll = (double)logf(fmaxf(lam, 1e-30f));
+  double lamd = (double)lam;
+  auto lu = [&](int k) {
+    int j = (int)floor((ll - a.seg_log0[k]) * a.seg_inv_d[k]);
+    return a.seg_i0[k] + clampi(j, 0, a.seg_n[k] - 1);
+  };
+  int i = lu(0);
+  if (lamd >= a.b_mid) i = lu(1);
+  if (lamd >= a.b_lya) i = lya_bin(a, lam);
+  if (lamd >= a.b_high) i = lu(2);
+  return i;
+}
+
+struct Exit {
+  float length, eps;
+  bool found;
+};
+
+// geometry.ray_cell_exit: six candidate surfaces, masked min.
+__device__ Exit ray_exit(float x, float y, float z, float vx, float vy,
+                         float vz, float rmin, float rmax, float zmin,
+                         float zmax) {
+  float L[6];
+  bool vz_ok = fabsf(vz) >= MIN_VZ;
+  float vzs = vz_ok ? vz : 1.f;
+  L[0] = vz_ok ? (zmax - z) / vzs : -1.f;
+  L[1] = vz_ok ? (zmin - z) / vzs : -1.f;
+  float rmin2 = rmin * rmin, rmax2 = rmax * rmax;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float tx = x + L[k] * vx, ty = y + L[k] * vy;
+    float rr = tx * tx + ty * ty;
+    if (!(L[k] >= 0.f && rr >= rmin2 && rr <= rmax2)) L[k] = -1.f;
+  }
+  float A = vx * vx + vy * vy;
+  float Bq = 2.f * (x * vx + y * vy);
+  float rr0 = x * x + y * y;
+  bool A_ok = fabsf(A) > MIN_VXY;
+  float As = A_ok ? A : 1.f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float Cq = rr0 - (k == 0 ? rmin2 : rmax2);
+    float D = Bq * Bq - 4.f * A * Cq;
+    bool ok = D > 0.f && A_ok;
+    float sq = sqrtf(fmaxf(D, 0.f));
+    float La = (-Bq + sq) / (2.f * As);
+    float Lb = (-Bq - sq) / (2.f * As);
+    float za = z + vz * La, zb = z + vz * Lb;
+    L[2 + 2 * k] = (ok && za >= zmin && za <= zmax) ? La : -1.f;
+    L[3 + 2 * k] = (ok && zb >= zmin && zb <= zmax) ? Lb : -1.f;
+  }
+  float length = FL_BIG;
+  bool found = false;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    bool valid = L[k] > MIN_LEN;
+    found = found || valid;
+    length = fminf(length, valid ? L[k] : FL_BIG);
+  }
+  float pos_scale = fabsf(x) + fabsf(y) + fabsf(z) + length;
+  float eps = fmaxf(fminf(rmax - rmin, zmax - zmin) * MIN_LEN_FRAC,
+                    pos_scale * F32_ULP8);
+  return {found ? length : 0.f, eps, found};
+}
+
+__device__ __forceinline__ Exit ray_exit_mirror(float x, float y, float z,
+                                                float vx, float vy, float vz,
+                                                float rmin, float rmax,
+                                                float zmin, float zmax) {
+  float s = (z >= zmin && z <= zmax) ? 1.f : -1.f;
+  return ray_exit(x, y, z * s, vx, vy, vz * s, rmin, rmax, zmin, zmax);
+}
+
+// geometry.locate, packed f32 path: two row reads; the count of z edges
+// <= |z| by binary search over the sorted ladder (+inf padded).
+__device__ int locate(const WalkArgs& a, float rsq, float zabs) {
+  float r = sqrtf(rsq);
+  int slot = (int)floorf((logf(fmaxf(r, 1e-30f)) - a.r_lut_log0) *
+                         a.r_lut_inv_d);
+  slot = clampi(slot, 0, a.n_lut - 1);
+  const float* prow = a.r_lut_pack + 3 * (size_t)slot;
+  int ic = (int)ld(prow) + (r >= ld(prow + 2) ? 1 : 0) -
+           (r < ld(prow + 1) ? 1 : 0);
+  ic = clampi(ic, 0, a.ncol - 1);
+  const int W = 2 * a.max_nz + 1;
+  const float* zc = a.zc_pack + (size_t)ic * W;
+  int lo = 0, hi = a.max_nz + 1;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (ld(zc + mid) <= zabs) lo = mid + 1; else hi = mid;
+  }
+  int iz = clampi(lo - 1, 0, a.max_nz - 1);
+  int cell = (int)ld(zc + a.max_nz + 1 + iz);
+  float z0 = ld(zc);
+  bool inside = r >= a.rmin_dom && r <= a.rmax_dom && zabs <= a.zmax_dom &&
+                zabs >= z0 && cell >= 0;
+  return inside ? cell : -1;
+}
+
+__device__ __forceinline__ float doppler(float k, float x, float y, float z,
+                                         float vx, float vy) {
+  float rr = x * x + y * y;
+  float r3 = sqrtf(rr + z * z);
+  float v = sqrtf(k / fmaxf(r3, 1e-30f));
+  return (-y * vx + x * vy) * v / sqrtf(fmaxf(rr, 1e-30f));
+}
+
+// io/bethell.dust_blanketing for f32: the closed form cancels below
+// tau ~ 0.1, so tau < 0.3 takes its Taylor series.
+__device__ __forceinline__ float blanketing(float sraw, float G, float a) {
+  float tau = sraw / fmaxf(G, 0.f) * 0.477464829275686f / fmaxf(a * a, 0.f);
+  tau = fmaxf(tau, 1e-8f);
+  float f;
+  if (tau < 0.3f)
+    f = 1.f + tau * (-0.375f +
+                     tau * (0.1f + tau * (-1.f / 48.f + tau * (1.f / 280.f))));
+  else
+    f = 1.5f / tau *
+        (1.f - 2.f / (tau * tau) *
+                   (1.f - (tau + 1.f) * expf(-fminf(tau, 200.f))));
+  return sraw > 0.f ? f : 1.f;
+}
+
+__device__ __forceinline__ float thomson_cost(float u) {
+  float y = 8.f * u - 4.f;
+  float x = y / 3.5f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    x = x - (x * x * x + 3.f * x - y) / (3.f * x * x + 3.f);
+  return clampf(x, -1.f, 1.f);
+}
+
+__device__ __forceinline__ float hg_cost(float u, float g) {
+  bool small = fabsf(g) <= 1e-2f;
+  float gs = small ? 1.f : g;
+  float t = (1.f - g * g) / (1.f + g * (2.f * u - 1.f));
+  float ch = 0.5f / gs * (1.f + g * g - t * t);
+  return clampf(small ? 2.f * u - 1.f : ch, -1.f, 1.f);
+}
+
+__global__ void __launch_bounds__(WALK_THREADS)
+    mc_walk_kernel(const WalkArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool alive = false;
+  if (i < a.B) {
+    float x = a.x[i], y = a.y[i], z = a.z[i];
+    float vx = a.vx[i], vy = a.vy[i], vz = a.vz[i];
+    float lam = a.lam[i], tau = a.tau[i];
+    const float en = a.en[i];
+    int cellv = a.cell[i], status = a.status[i], ecount = a.e_count[i];
+    Xorshift rng{a.rs0[i], a.rs1[i], a.rs2[i], a.rs3[i]};
+    const int nd = a.n_dust;
+    const int c_mfp = 12 + 3 * nd, c_base = 13 + 3 * nd;
+    const float fnq = (float)a.n_quantile;
+
+    for (int step = 0; step < a.max_steps && status == ST_ACTIVE; ++step) {
+      float u[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) u[k] = rng.next();
+      const float u_tau = fmaxf(u[0], 1e-12f);
+      const float u_ev = u[1], u_d1 = u[2], u_d2 = u[3], u_q = u[4];
+      bool active = true;
+
+      const int cell = clampi(cellv, 0, a.n_cells - 1);
+      const float* crow = a.cellmat + (size_t)cell * a.C;
+      const float rmin = ld(crow), rmax = ld(crow + 1);
+      const float zmin = ld(crow + 2), zmax = ld(crow + 3);
+      const bool using_c = ld(crow + 4) > 0.5f;
+      const float n_gas = ld(crow + 5), n_HI = ld(crow + 6);
+      const float n_H2O = ld(crow + 7);
+      const float Tg = fmaxf(ld(crow + 8), 1.f);
+
+      // Modified Random Walk: inscribed-sphere radius and the test
+      bool mrw = false;
+      float R0 = 0.f;
+      if (a.use_mrw) {
+        float r_pk = sqrtf(x * x + y * y);
+        float az = fabsf(z);
+        float dz_lo = zmin <= 0.f ? FL_BIG : az - zmin;
+        R0 = fminf(fminf(r_pk - rmin, rmax - r_pk), fminf(dz_lo, zmax - az)) *
+             0.999f;
+        mrw = using_c && lam > a.mrw_lam_min &&
+              (R0 * AU2CM * ld(crow + c_mfp) > a.mrw_gamma);
+        active = !mrw;
+      }
+
+      const Exit ex =
+          ray_exit_mirror(x, y, z, vx, vy, vz, rmin, rmax, zmin, zmax);
+      const bool stuck = active && !ex.found;
+      active = active && ex.found;
+
+      const float vd = doppler(a.star_k, x, y, z, vx, vy);
+      const float lam_local = lam * (1.f + vd / C_CGS);
+      const int ilam = lam_to_bin32(a, lam_local);
+      const bool in_grid = lam_local >= a.lam_lo && lam_local < a.lam_hi;
+      const bool usingm = using_c && in_grid;
+      const float* trow = a.tabmat + (size_t)ilam * a.K;
+      const float tT = clampf((logf(Tg) - a.lnT_lo_lya) * a.inv_dlnT_lya, 0.f,
+                              (float)(a.n_tlya - 1));
+      const int iT = (int)tT;
+      const float fT = tT - (float)iT;
+      const float* sl = a.lya_pair + 2 * ((size_t)ilam * a.n_tlya + iT);
+      const float sigma_lya = ld(sl) * (1.f - fT) + ld(sl + 1) * fT;
+      const float ab_gas = ld(trow) * n_gas;
+      const float sc_gas = ld(trow + 1) * n_gas + sigma_lya * n_HI;
+      const float ab_h2o = ld(trow + 2) * n_H2O;
+      float ab_d[MAX_DUST], sc_d[MAX_DUST];
+      float sum_ab = 0.f, sum_sc = 0.f;
+#pragma unroll
+      for (int d = 0; d < MAX_DUST; ++d) {
+        ab_d[d] = sc_d[d] = 0.f;
+        if (d < nd) {
+          float rho = ld(crow + 12 + 3 * d);
+          float ab = ld(trow + 5 + 3 * d) * rho;
+          float sc = ld(trow + 6 + 3 * d) * rho;
+          if (d == nd - 1) {
+            // X-ray dust terms ride on the last component
+            float epsd = ld(crow + 9);
+            float sraw = ld(trow + 3) * epsd;
+            float f = blanketing(sraw, ld(crow + 10), ld(crow + 11));
+            ab = ab + f * sraw * n_gas;
+            sc = sc + ld(trow + 4) * n_gas * epsd;
+          }
+          ab_d[d] = ab;
+          sc_d[d] = sc;
+          sum_ab = sum_ab + ab;
+          sum_sc = sum_sc + sc;
+        }
+      }
+      const float ext_ab = ab_gas + ab_h2o + sum_ab;
+      const float ext_sc = sc_gas + sum_sc;
+      const float ext_tot = usingm ? ext_ab + ext_sc : 0.f;
+
+      const float tau_this = ext_tot * AU2CM * ex.length;
+      const bool enc = tau_this >= tau && active && tau_this > 0.f;
+      const float move_len = enc ? ex.length * tau / fmaxf(tau_this, 1e-33f)
+                                 : ex.length + ex.eps;
+      const float nx = x + vx * move_len;
+      const float ny = y + vy * move_len;
+      const float nz = z + vz * move_len;
+      const bool tmask = active && usingm;
+      const float wflux = tmask ? move_len * en : 0.f;
+
+      // event selection: the first channel whose running sum exceeds
+      // u * total, channels in the JAX order (gas abs, gas sca, water,
+      // 0, then abs/sca per dust)
+      float tot = ab_gas;
+      tot = tot + sc_gas;
+      tot = tot + ab_h2o;
+      tot = tot + 0.f;
+#pragma unroll
+      for (int d = 0; d < MAX_DUST; ++d)
+        if (d < nd) {
+          tot = tot + ab_d[d];
+          tot = tot + sc_d[d];
+        }
+      const float u_ev2 = u_ev * tot;
+      int ev = 0;
+      {
+        bool got = false;
+        float cum = 0.f;
+        auto chk = [&](float p, int ch) {
+          cum = cum + p;
+          if (!got && cum > u_ev2) {
+            ev = ch;
+            got = true;
+          }
+        };
+        chk(ab_gas, 0);
+        chk(sc_gas, 1);
+        chk(ab_h2o, 2);
+        chk(0.f, 3);
+#pragma unroll
+        for (int d = 0; d < MAX_DUST; ++d)
+          if (d < nd) {
+            chk(ab_d[d], 4 + 2 * d);
+            chk(sc_d[d], 5 + 2 * d);
+          }
+      }
+      const bool is_x = lam_local >= a.xr_lo && lam_local <= a.xr_hi;
+      const bool ev_gas_abs = enc && ev == 0;
+      const bool ev_gas_sca = enc && ev == 1;
+      const bool ev_h2o_abs = enc && ev == 2;
+      const int idust_ev = clampi(ev >= 4 ? (ev - 4) / 2 : -1, 0, nd - 1);
+      const bool ev_dust = enc && ev >= 4;
+      const bool ev_dust_abs = ev_dust && (ev % 2 == 0);
+      const bool ev_dust_sca = ev_dust && (ev % 2 == 1);
+      const bool dust_abs_keep = ev_dust_abs && !is_x;
+
+      // new directions
+      const float phi = TWO_PI * u_d2;
+      const float g_pk = ld(trow + 7 + 3 * idust_ev);
+      float cost_sca;
+      if (ev_gas_sca && is_x) cost_sca = thomson_cost(u_d1);
+      else if (ev_dust_sca) cost_sca = hg_cost(u_d1, g_pk);
+      else cost_sca = 2.f * u_d1 - 1.f;
+      const bool scatterish = ev_gas_sca || ev_dust_sca;
+      const bool reemitish = dust_abs_keep;
+      float sphi, cphi;
+      sincosf(phi, &sphi, &cphi);
+      float nvx = vx, nvy = vy, nvz = vz;
+      if (scatterish) {
+        // rotate (sint cos phi, sint sin phi, cost) from the z axis into
+        // the frame of (vx, vy, vz)
+        float sint = sqrtf(fmaxf(1.f - cost_sca * cost_sca, 0.f));
+        float ux = sint * cphi, uy = sint * sphi, uz = cost_sca;
+        float st = sqrtf(fmaxf(1.f - vz * vz, 0.f));
+        bool safe = st > 0.f;
+        float cp = safe ? vx / st : 0.f;
+        float sp = safe ? vy / st : 1.f;
+        float ux2 = ux * vz + uz * st;
+        float uz2 = uz * vz - ux * st;
+        nvx = ux2 * cp - uy * sp;
+        nvy = uy * cp + ux2 * sp;
+        nvz = uz2;
+      } else if (reemitish) {
+        float rz = 2.f * u_d1 - 1.f;
+        float rs = sqrtf(fmaxf(1.f - rz * rz, 0.f));
+        nvx = cphi * rs;
+        nvy = sphi * rs;
+        nvz = rz;
+      }
+
+      // new wavelengths
+      const float vd_new = doppler(a.star_k, nx, ny, nz, nvx, nvy);
+      const float lam_scat = lam_local * (1.f - vd_new / C_CGS);
+      const float Td = ld(crow + 13 + 3 * idust_ev);
+      const int itd = (int)clampf(
+          ceilf((logf(fmaxf(Td, 1e-30f)) - a.lnT0) * a.inv_dlnT), 0.f,
+          (float)(a.nT - 1));
+      const int iq = clampi((int)(u_q * fnq), 0, a.n_quantile - 1);
+      int idx_re = (idust_ev * a.nT + itd) * a.n_quantile + iq;
+      if (a.use_mrw && mrw) {
+        int iqm = clampi((int)(u[7] * fnq), 0, a.n_quantile - 1);
+        idx_re = (int)ld(crow + c_base) + iqm;
+      }
+      const float lam_re = ld(a.reemit_lam + idx_re);
+      const bool cold = Td <= a.td_cold;
+      const float new_lam =
+          scatterish ? lam_scat : ((reemitish && !cold) ? lam_re : lam);
+
+      // status updates
+      const bool destro_water = enc && ev_h2o_abs;
+      const bool destro = enc && (ev_gas_abs || (ev_dust_abs && is_x) ||
+                                  (dust_abs_keep && cold));
+      int new_status = (active && destro) ? ST_DESTRUCTED : status;
+      if (active && destro_water) new_status = ST_DESTR_WATER;
+      const int ec2 = ecount + ((enc || stuck) ? 1 : 0);
+      if ((active || stuck) && ec2 >= a.nmax_encounter)
+        new_status = ST_PREMATURE;
+
+      // non-encounter: next cell or escape; stuck lanes relocate
+      const bool crossed = active && !enc;
+      const float rsq_new = stuck ? x * x + y * y : nx * nx + ny * ny;
+      const float z_q = stuck ? z : nz;
+      const int ncl = locate(a, rsq_new, fabsf(z_q));
+      const bool escaped = (crossed || stuck) && ncl < 0;
+      if (escaped) new_status = ST_ESCAPED;
+      const int new_cell = (crossed || stuck) ? max(ncl, 0) : cellv;
+      const bool stuck_same = stuck && ncl == cellv;
+      float s_r = 1.f, z_t = 0.f;
+      if (stuck_same) {
+        float rc = sqrtf(rsq_new);
+        float r_t = fminf(fmaxf(rc, rmin * 1.000002f), rmax * 0.999998f);
+        s_r = r_t / fmaxf(rc, 1e-30f);
+        float dz6 = 2e-6f * (zmax - zmin);
+        float sg = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
+        z_t = sg * fminf(fmaxf(fabsf(z), zmin + dz6), zmax - dz6);
+      }
+      float new_tau = enc ? -logf(u_tau) : tau - tau_this;
+      if (crossed) new_tau = tau - tau_this;
+      new_tau = fmaxf(new_tau, 0.f);
+
+      // tallies (they read this step's state before its update)
+      if (tmask) {
+        const int flat = cell * a.nlam + ilam;
+        atomicAdd(a.flux + flat, wflux);
+        if (a.save_counts) atomicAdd(a.phc + flat, 1.f);
+        if (a.save_dir) {
+          atomicAdd(a.dir_flux + 3 * cell, wflux * vx);
+          atomicAdd(a.dir_flux + 3 * cell + 1, wflux * vy);
+          atomicAdd(a.dir_flux + 3 * cell + 2, wflux * vz);
+        }
+      }
+      if (a.save_counts) {
+        if (dust_abs_keep && active)
+          atomicAdd(a.en_gain_abso + idust_ev * a.n_cells + cell, en);
+        else if (crossed && !escaped)
+          atomicAdd(a.cr_count + new_cell, 1.f);
+      }
+
+      if (mrw) {
+        // MRW diffusion step: first-passage path, exit on the sphere
+        float lnx = ld(a.mrw_lnx +
+                       clampi((int)(u[5] * (float)a.n_mrw), 0, a.n_mrw - 1));
+        float R0cm = R0 * AU2CM;
+        float L_cm = fmaxf(-3.f * R0cm * R0cm * ld(crow + c_mfp) * lnx / PI2,
+                           R0cm);
+        atomicAdd(a.mrw_path + cell, L_cm / AU2CM * en);
+        float mw = 2.f * u[6] - 1.f;
+        float mphi = TWO_PI * u[8];
+        float ms = sqrtf(fmaxf(1.f - mw * mw, 0.f));
+        float msn, mcs;
+        sincosf(mphi, &msn, &mcs);
+        float mx = ms * mcs, my = ms * msn, mz = mw;
+        x = x + R0 * mx;
+        y = y + R0 * my;
+        z = z + R0 * mz;
+        vx = mx;
+        vy = my;
+        vz = mz;
+        lam = lam_re;
+        tau = -logf(fmaxf(u[9], 1e-12f));
+      } else {
+        if (stuck_same) {
+          x = x * s_r;
+          y = y * s_r;
+          z = z_t;
+        } else if (active) {
+          x = nx;
+          y = ny;
+          z = nz;
+        }
+        if (enc) {
+          vx = nvx;
+          vy = nvy;
+          vz = nvz;
+          lam = new_lam;
+        }
+        if (enc || crossed) tau = new_tau;
+      }
+      cellv = new_cell;
+      status = new_status;
+      ecount = ec2 + (mrw ? 1 : 0);
+    }
+    a.x[i] = x; a.y[i] = y; a.z[i] = z;
+    a.vx[i] = vx; a.vy[i] = vy; a.vz[i] = vz;
+    a.lam[i] = lam; a.tau[i] = tau;
+    a.cell[i] = cellv; a.status[i] = status; a.e_count[i] = ecount;
+    a.rs0[i] = rng.s0; a.rs1[i] = rng.s1; a.rs2[i] = rng.s2; a.rs3[i] = rng.s3;
+    alive = status == ST_ACTIVE;
+  }
+  // live-lane count: one atomic per warp
+  const unsigned m = __ballot_sync(0xffffffffu, alive);
+  if ((threadIdx.x & 31) == 0 && m) atomicAdd(a.n_active, __popc(m));
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS)
+    fold_terminal_kernel(const FoldArgs a) {
+  extern __shared__ float hist[];          // [n_mu * nlam]
+  const int nbin = a.n_mu * a.nlam;
+  for (int k = threadIdx.x; k < nbin; k += blockDim.x) hist[k] = 0.f;
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.B;
+       i += gridDim.x * blockDim.x) {
+    const int st = a.status[i];
+    if (st == ST_DESTR_WATER) {
+      atomicAdd(a.ab_en_water + clampi(a.cell[i], 0, a.n_cells - 1), a.en[i]);
+      continue;
+    }
+    if (st != ST_ESCAPED) continue;
+    const float x = a.x[i], y = a.y[i], z = a.z[i];
+    const float vx = a.vx[i], vy = a.vy[i], vz = a.vz[i];
+    const float en = a.en[i];
+    const int imu = clampi((int)(fabsf(vz) * (float)a.n_mu), 0, a.n_mu - 1);
+    const int ilam = clampi(lam_to_bin64(a, a.lam[i]), 0, a.nlam - 1);
+    atomicAdd(hist + imu * a.nlam + ilam, en);
+    // image-plane bins: displacement orthogonal to the ray, in a frame
+    // with the ray as z axis (x-axis fallback near the pole)
+    const float dotp = x * vx + y * vy + z * vz;
+    const float rox = x - dotp * vx, roy = y - dotp * vy, roz = z - dotp * vz;
+    const bool degen = fabsf(vz) >= 0.99f;
+    const float uxn = sqrtf(fmaxf(vx * vx + vy * vy, 1e-30f));
+    const float ux_x = degen ? 1.f : -vy / uxn;
+    const float ux_y = degen ? 0.f : vx / uxn;
+    const float ux_z = 0.f;
+    const float uy_x = degen ? 0.f : vy * ux_z - vz * ux_y;
+    const float uy_y = degen ? 1.f : vz * ux_x - vx * ux_z;
+    const float uy_z = degen ? 0.f : vx * ux_y - vy * ux_x;
+    const float r_o_x = rox * ux_x + roy * ux_y + roz * ux_z;
+    const float r_o_y = rox * uy_x + roy * uy_y + roz * uy_z;
+    const float r_img = sqrtf(r_o_x * r_o_x + r_o_y * r_o_y);
+    const float phi_img = atan2f(r_o_y, r_o_x);
+    int ir = clampi((int)(logf(fmaxf(r_img, 1e-30f) / a.r0) / a.log_ratio *
+                          (float)(a.n_r - 1)) + 1,
+                    0, a.n_r - 1);
+    if (r_img < a.r0) ir = 0;
+    const int iphi = clampi(
+        (int)((phi_img + PI_F) / TWO_PI * (float)a.n_phi), 0, a.n_phi - 1);
+    const size_t flat =
+        ((size_t)((imu * a.n_r + ir) * a.n_phi + iphi)) * a.nlam + ilam;
+    atomicAdd(a.collector_img + flat, en);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nbin; k += blockDim.x)
+    if (hist[k] != 0.f) atomicAdd(a.collector + k, hist[k]);
+}
+
+}  // namespace
+
+extern "C" int rac2d_mc_walk(const WalkArgs* a, cudaStream_t stream) {
+  if (a->B > 0) {
+    const int grid = (a->B + WALK_THREADS - 1) / WALK_THREADS;
+    mc_walk_kernel<<<grid, WALK_THREADS, 0, stream>>>(*a);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rac2d_fold_terminal(const FoldArgs* a, cudaStream_t stream) {
+  if (a->B <= 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)a->n_mu * a->nlam * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fold_terminal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = (a->B + FOLD_THREADS - 1) / FOLD_THREADS;
+  if (blocks > 132 * 4) blocks = 132 * 4;
+  fold_terminal_kernel<<<blocks, FOLD_THREADS, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}

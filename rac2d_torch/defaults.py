@@ -11,3 +11,6 @@ DATA = pathlib.Path(__file__).resolve().parent.parent / "rac2d_tpu" / "data"
 NETWORK = str(DATA / "chem" / "rate06_withgrain.dat")
 INIT_ABUNDANCES = str(DATA / "chem" / "initial_condition_Garrod08_mod.dat")
 ENTHALPIES = str(DATA / "chem" / "Species_enthalpy.dat")
+SILICATE_OPTI = str(DATA / "dust" / "silicate_draine.opti")
+H2O_PHOTOXS = str(DATA / "star" / "H2O.photoxs")
+TWHYA_SPECTRUM = str(DATA / "star" / "tw_hya_spec_combined.dat")

@@ -1,16 +1,19 @@
 """Hand-written CUDA kernels: build, load, check arguments, launch.
 
-The kernels live in ``rac2d_torch/csrc/*.cu`` with a plain C interface.
-At first use on a CUDA tensor they are compiled with ``nvcc`` for sm_90a
-into ``build/rac2d_torch/`` at the repository root (the file name carries
-a hash of the sources and flags, so an edit rebuilds) and loaded with
-ctypes.  Pointers come from ``data_ptr()`` and the stream from
+The kernels live in ``rac2d_torch/csrc/*.cu`` with a plain C interface:
+K1/K2 (blocked LU factor and solve) in ``blocklu.cu``, K3/K4 (the Monte
+Carlo packet walk and the terminal tally fold) in ``mcwalk.cu``.  At
+first use on a CUDA tensor each source is compiled with ``nvcc`` for
+sm_90a into its own library in ``build/rac2d_torch/`` at the repository
+root (the file name carries a hash of the source and flags, so an edit
+rebuilds; the nvcc runs go in parallel) and loaded with ctypes.  Pointers come from ``data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``.
 
 Each wrapper dispatches on the device of the tensor it is given:
 
 - a CPU tensor runs the kernel's plain PyTorch version
-  (``ops/blocklu.py``), so the CPU tests exercise the same algorithm;
+  (``ops/blocklu.py``, ``ops/mcrt.py``), so the CPU tests exercise the
+  same algorithm;
 - a CUDA tensor launches the kernel, or raises: a failed build, a
   refused launch (non-zero ``cudaGetLastError()``) or an argument the
   kernel does not take is an error, never a fallback.
@@ -28,6 +31,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import types
 
 import torch
 
@@ -38,12 +42,26 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "rac2d_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source additions: the walk keeps every f32 product and sum
+# separately rounded, as the plain version's elementwise ops do (no FMA
+# contraction), so the two draw the same decisions on nearly every lane
+EXTRA_FLAGS = {"mcwalk.cu": ["--fmad=false"]}
 
 _lib = None
-# compiler output of the build done by this process ("" if the library
-# was already built); -Xptxas -v puts each kernel's registers, shared
+# compiler output of the builds done by this process ("" if the libraries
+# were already built); -Xptxas -v puts each kernel's registers, shared
 # memory and spills here
 build_log = ""
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# exported C functions: (argtypes, restype)
+_FUNCS = {
+    "rac2d_blocklu_factor": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rac2d_blocklu_solve": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rac2d_cuda_error_string": ([_I], ctypes.c_char_p),
+    "rac2d_mc_walk": ([_P, _P], _I),
+    "rac2d_fold_terminal": ([_P, _P], _I),
+}
 
 
 def _nvcc() -> str:
@@ -55,43 +73,60 @@ def _nvcc() -> str:
 
 
 def load():
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel libraries: one
+    shared library per source, all nvcc runs started together."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    so = BUILD_DIR / f"librac2d_kernels_{h.hexdigest()[:12]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        flags = NVCC_FLAGS + EXTRA_FLAGS.get(src.name, [])
+        h = hashlib.sha1(" ".join(flags).encode())
+        h.update(src.read_bytes())
+        so = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
+        proc = tmp = cmd = None
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        jobs.append((so, tmp, cmd, proc))
+    logs, failed = [], []
+    for so, tmp, cmd, proc in jobs:
+        if proc is None:
+            continue
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        build_log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rac2d_blocklu_factor.argtypes = [p, p, p, p, i, i, i, p]
-    lib.rac2d_blocklu_factor.restype = i
-    lib.rac2d_blocklu_solve.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.rac2d_blocklu_solve.restype = i
-    lib.rac2d_cuda_error_string.argtypes = [i]
-    lib.rac2d_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)
+            logs.append(out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_log = "".join(logs)
+    funcs = {}
+    for so, *_ in jobs:
+        dll = ctypes.CDLL(str(so))
+        for name, (argtypes, restype) in _FUNCS.items():
+            fn = getattr(dll, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = restype
+                funcs[name] = fn
+    missing = set(_FUNCS) - set(funcs)
+    if missing:
+        raise RuntimeError(f"kernel libraries lack {sorted(missing)}")
+    _lib = types.SimpleNamespace(**funcs)
+    return _lib
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype=torch.float32):
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
@@ -175,7 +210,212 @@ def block_lu_solve(fac: BlockLU, b):
 block_lu_solve.launches = 0
 
 
+# --------------------------------------------------------------------
+# K3/K4: the Monte Carlo walk and terminal fold (csrc/mcwalk.cu).  The C
+# structs WalkArgs/FoldArgs there list the same fields in the same order.
+
+MAX_DUST = 4      # dust components the walk kernel keeps in registers
+
+
+def _struct(name, fields):
+    ctype = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+             "d": ctypes.c_double, "i3": ctypes.c_int * 3,
+             "f3": ctypes.c_float * 3, "d3": ctypes.c_double * 3}
+    return type(name, (ctypes.Structure,), {"_fields_": [
+        (n, ctype[t]) for t, names in fields for n in names.split()]})
+
+
+_WalkArgs = _struct("WalkArgs", [
+    ("p", "x y z vx vy vz lam en tau cell status e_count rs0 rs1 rs2 rs3 "
+          "cellmat tabmat lya_pair reemit_lam mrw_lnx r_lut_pack zc_pack "
+          "flux mrw_path phc en_gain_abso cr_count dir_flux n_active"),
+    ("i", "B max_steps n_cells nlam n_dust C K nT n_quantile n_mrw n_tlya "
+          "n_lut ncol max_nz nmax_encounter use_mrw save_counts save_dir"),
+    ("i3", "seg_i0 seg_n"),
+    ("i", "lya_i0 lya_n2"),
+    ("f", "lam_lo lam_hi xr_lo xr_hi lnT0 inv_dlnT td_cold lnT_lo_lya "
+          "inv_dlnT_lya mrw_gamma mrw_lam_min star_k r_lut_log0 r_lut_inv_d "
+          "rmin_dom rmax_dom zmax_dom"),
+    ("f3", "seg_log0 seg_inv_d"),
+    ("f", "b_mid b_lya b_high lya_a lya_inv_d lya_K lam0 lya_xmin"),
+])
+
+_FoldArgs = _struct("FoldArgs", [
+    ("p", "x y z vx vy vz lam en cell status collector collector_img "
+          "ab_en_water"),
+    ("d3", "seg_log0 seg_inv_d"),
+    ("d", "b_mid b_lya b_high"),
+    ("i", "B nlam n_mu n_r n_phi n_cells"),
+    ("i3", "seg_i0 seg_n"),
+    ("i", "lya_i0 lya_n2"),
+    ("f", "lya_a lya_inv_d lya_K lam0 lya_xmin r0 log_ratio"),
+])
+
+_PK_F32 = ("x", "y", "z", "vx", "vy", "vz", "lam", "en", "tau")
+_PK_I32 = ("cell", "status", "e_count", "rs0", "rs1", "rs2", "rs3")
+
+
+def _check_packets(pk, device):
+    B = pk.x.shape[0]
+    for f in _PK_F32:
+        _check(f"packets.{f}", getattr(pk, f), (B,), device)
+    for f in _PK_I32:
+        _check(f"packets.{f}", getattr(pk, f), (B,), device, torch.int32)
+    return B
+
+
+def _seg_fields(seg, cast):
+    """The lambda-segment constants shared by WalkArgs and FoldArgs;
+    cast is float32 rounding for the walk and float for the fold."""
+    from .optics import f32
+    return dict(
+        seg_log0=[cast(v) for v in seg.log0],
+        seg_inv_d=[cast(v) for v in seg.inv_d],
+        b_mid=cast(seg.b_mid), b_lya=cast(seg.b_lya),
+        b_high=cast(seg.b_high),
+        seg_i0=[int(v) for v in seg.i0], seg_n=[int(v) for v in seg.n],
+        lya_i0=int(seg.lya_i0), lya_n2=int(seg.lya_n2),
+        lya_a=f32(seg.lya_a), lya_inv_d=f32(seg.lya_inv_d),
+        lya_K=f32(seg.lya_K), lam0=f32(seg.lam0),
+        lya_xmin=f32(10.0 ** seg.lya_a))
+
+
+def _fill(struct, values):
+    out = struct()
+    for k, v in values.items():
+        if isinstance(v, torch.Tensor):
+            v = v.data_ptr()
+        if isinstance(v, list):
+            getattr(out, k)[:] = v
+        else:
+            setattr(out, k, v)
+    return out
+
+
+def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
+            use_mrw=True, mrw_gamma=4.0, mrw_lam_min=1e4, save_dir=False,
+            save_counts=True):
+    """K3: advance every live packet by up to max_steps walk steps, in
+    place, and add the step tallies (flux and mrw_path; phc, en_gain_abso
+    and cr_count with save_counts; dir_flux with save_dir) into
+    `tallies`.  Returns the number of lanes still active (0-d tensor).
+    On a CPU tensor this is ``mcrt._walk_plain``."""
+    from . import mcrt
+    from .optics import f32
+    kw = dict(nmax_encounter=nmax_encounter, use_mrw=use_mrw,
+              mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
+              save_dir=save_dir, save_counts=save_counts)
+    if not _on_cuda(pk.x, "mc_walk"):
+        return mcrt._walk_plain(ws, pk, tallies, max_steps, **kw)
+    dev = pk.x.device
+    B = _check_packets(pk, dev)
+    gi = ws.gi
+    if gi.r_lut_pack is None or gi.zc_pack is None:
+        raise ValueError("mc_walk: the kernel takes the packed locate "
+                         "tables (geometry.build_grid_index)")
+    if ws.n_dust > MAX_DUST:
+        raise ValueError(f"mc_walk: {ws.n_dust} dust components, the "
+                         f"kernel takes at most {MAX_DUST}")
+    n, nlam, nd = ws.n_cells, ws.nlam, ws.n_dust
+    C, K = ws.cellmat.shape[1], ws.tabmat.shape[1]
+    n_lut, ncol = gi.r_lut_pack.shape[0], gi.zc_pack.shape[0]
+    max_nz = (gi.zc_pack.shape[1] - 1) // 2
+    for name, t, shape in (
+            ("cellmat", ws.cellmat, (n, C)), ("tabmat", ws.tabmat, (nlam, K)),
+            ("lya_pair", ws.lya_pair, (nlam * mcrt.N_TLYA, 2)),
+            ("reemit_lam", ws.reemit_lam, (nd * ws.nT * ws.n_quantile,)),
+            ("mrw_lnx", ws.mrw_lnx, (ws.n_mrw,)),
+            ("r_lut_pack", gi.r_lut_pack, (n_lut, 3)),
+            ("zc_pack", gi.zc_pack, (ncol, 2 * max_nz + 1)),
+            ("flux", tallies.flux, (n, nlam)),
+            ("mrw_path", tallies.mrw_path, (n,)),
+            ("phc", tallies.phc, (n, nlam)),
+            ("en_gain_abso", tallies.en_gain_abso, (nd, n)),
+            ("cr_count", tallies.cr_count, (n,)),
+            ("dir_flux", tallies.dir_flux, (n, 3))):
+        _check(name, t, shape, dev)
+    lib = load()
+    n_active = torch.zeros(1, dtype=torch.int32, device=dev)
+    vals = {k: getattr(pk, k) for k in _PK_F32 + _PK_I32}
+    vals.update(
+        cellmat=ws.cellmat, tabmat=ws.tabmat, lya_pair=ws.lya_pair,
+        reemit_lam=ws.reemit_lam, mrw_lnx=ws.mrw_lnx,
+        r_lut_pack=gi.r_lut_pack, zc_pack=gi.zc_pack, flux=tallies.flux,
+        mrw_path=tallies.mrw_path, phc=tallies.phc,
+        en_gain_abso=tallies.en_gain_abso, cr_count=tallies.cr_count,
+        dir_flux=tallies.dir_flux, n_active=n_active,
+        B=B, max_steps=int(max_steps), n_cells=n, nlam=nlam, n_dust=nd,
+        C=C, K=K, nT=ws.nT, n_quantile=ws.n_quantile, n_mrw=ws.n_mrw,
+        n_tlya=mcrt.N_TLYA, n_lut=n_lut, ncol=ncol, max_nz=max_nz,
+        nmax_encounter=int(nmax_encounter), use_mrw=int(bool(use_mrw)),
+        save_counts=int(bool(save_counts)), save_dir=int(bool(save_dir)),
+        lam_lo=ws.lam_lo, lam_hi=ws.lam_hi, xr_lo=f32(ws.xr_lo),
+        xr_hi=f32(ws.xr_hi), lnT0=ws.lnT0, inv_dlnT=ws.inv_dlnT,
+        td_cold=ws.td_cold, lnT_lo_lya=ws.lnT_lo_lya,
+        inv_dlnT_lya=ws.inv_dlnT_lya, mrw_gamma=f32(mrw_gamma),
+        mrw_lam_min=f32(mrw_lam_min),
+        star_k=f32(mcrt.DOPPLER_K * ws.star_mass),
+        r_lut_log0=f32(gi.r_lut_log0), r_lut_inv_d=f32(gi.r_lut_inv_d),
+        rmin_dom=f32(gi.rmin_dom), rmax_dom=f32(gi.rmax_dom),
+        zmax_dom=f32(gi.zmax_dom))
+    vals.update(_seg_fields(ws.seg, f32))
+    args = _fill(_WalkArgs, vals)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.rac2d_mc_walk, ctypes.addressof(args), stream)
+    mc_walk.launches += 1
+    return n_active[0]
+
+
+mc_walk.launches = 0
+
+
+def fold_terminal(model, pk, tallies, n_mu):
+    """K4: fold the terminated lanes of a batch into the escape collector
+    ([n_mu, nlam], per-CTA shared-memory histogram), the image-plane bins
+    ([n_mu, n_r, n_phi, nlam]) and the water deposit ([n_cells]), in
+    place.  On a CPU tensor this is ``mcrt._fold_terminal_plain``."""
+    from . import mcrt
+    if not _on_cuda(pk.x, "fold_terminal"):
+        return mcrt._fold_terminal_plain(model, pk, tallies, n_mu)
+    dev = pk.x.device
+    B = _check_packets(pk, dev)
+    n_mu_t, nlam = tallies.collector.shape
+    _, n_r, n_phi, _ = tallies.collector_img.shape
+    n = tallies.ab_en_water.shape[0]
+    if n_mu_t != n_mu:
+        raise ValueError(f"fold_terminal: collector has {n_mu_t} mu bins, "
+                         f"n_mu={n_mu}")
+    for name, t, shape in (
+            ("collector", tallies.collector, (n_mu, nlam)),
+            ("collector_img", tallies.collector_img,
+             (n_mu, n_r, n_phi, nlam)),
+            ("ab_en_water", tallies.ab_en_water, (n,))):
+        _check(name, t, shape, dev)
+    lib = load()
+    fb = mcrt.fold_bins(model.gi)
+    vals = {k: getattr(pk, k) for k in
+            ("x", "y", "z", "vx", "vy", "vz", "lam", "en", "cell", "status")}
+    vals.update(collector=tallies.collector,
+                collector_img=tallies.collector_img,
+                ab_en_water=tallies.ab_en_water, B=B, nlam=nlam, n_mu=n_mu,
+                n_r=n_r, n_phi=n_phi, n_cells=n, r0=fb.r0,
+                log_ratio=fb.log_ratio)
+    vals.update(_seg_fields(model.tab.lam_seg, float))
+    args = _fill(_FoldArgs, vals)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.rac2d_fold_terminal, ctypes.addressof(args), stream)
+    fold_terminal.launches += 1
+    return tallies
+
+
+fold_terminal.launches = 0
+
+
 def reset_launches():
     """Set every kernel's launch count to 0."""
     block_lu_factor.launches = 0
     block_lu_solve.launches = 0
+    mc_walk.launches = 0
+    fold_terminal.launches = 0

@@ -1,4 +1,5 @@
-"""The CUDA kernel wrappers (rac2d_torch.ops.kernels).
+"""The CUDA kernel wrappers (rac2d_torch.ops.kernels): K1/K2 (blocked
+LU) and K3/K4 (Monte Carlo walk and terminal fold).
 
 On the CPU: the wrappers run their plain versions, launch nothing, and
 refuse devices that have neither.  Tests marked `cuda` need the card and
@@ -10,14 +11,22 @@ on the card run it without the repository's conftest (which imports JAX):
 Tolerances on the card: f32 roundoff of a 512-wide factorization whose
 kernel sums in another order (FMA, shuffles) than the plain version,
 <= 1e-4 relative to max(|ref|, 1) per lane; the f64-refined Newton solve
-at 1e-8, the bar of tests/test_blocklu.py:107-132.
+at 1e-8, the bar of tests/test_blocklu.py:107-132.  K3 against its
+plain version: status and cell agree on >= 99% of lanes after 16 steps
+(libm ulps and atomics reorder a few threshold decisions), the RNG words
+are equal on live agreeing lanes, the tally totals within 1e-3, and on
+the agreeing lanes every tally bin within 1e-4 of its channel's largest;
+K4: the collector totals within 1e-5 (f32 atomics in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rac2d_torch.ops import bdf, blocklu, kernels
+from rac2d_torch import defaults
+from rac2d_torch.models import density, driver
+from rac2d_torch.models.grid import GridConfig
+from rac2d_torch.ops import bdf, blocklu, kernels, mcrt, optics
 
 
 @pytest.fixture
@@ -68,7 +77,7 @@ def test_build_dir_is_inside_the_checkout():
     root = kernels.CSRC.parent.parent
     assert kernels.BUILD_DIR == root / "build" / "rac2d_torch"
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == \
-        ["blocklu.cu"]
+        ["blocklu.cu", "mcwalk.cu"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
@@ -119,3 +128,130 @@ def test_newton_solve_kernel_matches_block_on_card(cuda_device):
         x = bdf._bsolve(J, c, fac, b, 2, backend)
         assert float((x - ref).abs().max()) \
             < 1e-8 * float(ref.abs().max()), backend
+
+
+# --------------------------------------------------------------------
+# K3/K4: the Monte Carlo walk and the terminal fold
+
+def _mc_setup(device, n_packets=4096, seed=0, ncol=10, max_cells=100):
+    """A small TW Hya-like disk (the bench recipe at ncol=10) with a
+    warm Tdust(r) profile, and packets launched from its ladder."""
+    cfg = driver.DiskConfig(
+        lumi_Xray=1e30,
+        andrews=density.AndrewsDisk(Md=0.01, rin=1.0, rout=100.0, rc=50.0,
+                                    hc=10.0),
+        grid=GridConfig(rmin=1.0, rmax=100.0, zmax=100.0, ncol=ncol,
+                        max_num_of_cells=max_cells),
+        dust=[driver.DustComponent(opti_files=[defaults.SILICATE_OPTI],
+                                   weights=[1.0])],
+        network_file=defaults.NETWORK, enthalpy_file=defaults.ENTHALPIES,
+        init_abundances_file=defaults.INIT_ABUNDANCES,
+        h2o_cross_file=defaults.H2O_PHOTOXS,
+        mc=optics.McConfig(nlen_lut=256, n_quantile=128))
+    m = driver.DiskModel(cfg, device)
+    m.prepare()
+    m.Tdusts = np.clip(150.0 * m.r_cells ** -0.5, 10.0, 1500.0)[None, :]
+    model = mcrt.McModel(m.tab, m.gi, m.mc_cells(), cfg.star_mass)
+    lam, en, _ = m.packet_pool(20_000)
+    pick = np.linspace(0, len(lam) - 1, n_packets).astype(int)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pk = mcrt.launch_packets(model, gen, torch.as_tensor(lam[pick],
+                                                         device=device),
+                             torch.as_tensor(en[pick], device=device),
+                             0.0, cfg.maxw)
+    return m, model, pk
+
+
+def test_mc_wrappers_run_plain_version_on_cpu():
+    m, model, pk = _mc_setup("cpu", n_packets=256)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    nlam = len(m.tab.lam)
+    tk = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5)
+    tp = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5)
+    pk_k, pk_p = pk.clone(), pk.clone()
+    kernels.reset_launches()
+    na = kernels.mc_walk(ws, pk_k, tk, 8)
+    assert int(na) == int(mcrt._walk_plain(ws, pk_p, tp, 8))
+    kernels.fold_terminal(model, pk_k, tk, 5)
+    mcrt._fold_terminal_plain(model, pk_p, tp, 5)
+    for a, b in zip(pk_k + tk, pk_p + tp):
+        assert torch.equal(a, b)
+    assert kernels.mc_walk.launches == 0
+    assert kernels.fold_terminal.launches == 0
+
+
+def _totals_rel(a, b):
+    a, b = float(a.double().sum()), float(b.double().sum())
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mrw", [True, False])
+@pytest.mark.parametrize("save_counts", [True, False])
+def test_mc_kernels_match_plain_on_card(cuda_device, use_mrw, save_counts):
+    m, model, pk = _mc_setup(cuda_device)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    nlam = len(m.tab.lam)
+    tk = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5, device=cuda_device)
+    tp = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5, device=cuda_device)
+    pk_k, pk_p = pk.clone(), pk.clone()
+    kw = dict(use_mrw=use_mrw, save_counts=save_counts, save_dir=True)
+    kernels.reset_launches()
+    na_k = int(kernels.mc_walk(ws, pk_k, tk, 16, **kw))
+    na_p = int(mcrt._walk_plain(ws, pk_p, tp, 16, **kw))
+    torch.cuda.synchronize()
+    assert kernels.mc_walk.launches == 1
+    agree = (pk_k.status == pk_p.status) & (pk_k.cell == pk_p.cell) \
+        & (pk_k.e_count == pk_p.e_count)
+    assert float(agree.float().mean()) >= 0.99
+    assert abs(na_k - na_p) <= 0.01 * len(agree)
+    live = agree & (pk_k.status == mcrt.ST_ACTIVE)
+    for f in ("rs0", "rs1", "rs2", "rs3"):
+        assert torch.equal(getattr(pk_k, f)[live], getattr(pk_p, f)[live])
+    fields = ["flux", "mrw_path", "dir_flux"]
+    if save_counts:
+        fields += ["phc", "en_gain_abso", "cr_count"]
+    for f in fields:
+        assert _totals_rel(getattr(tk, f), getattr(tp, f)) <= 1e-3, f
+    # every bin, on the agreeing lanes alone (tallies never feed back into
+    # a lane's walk, so re-walked alone they add what they added before)
+    sk, sp = tk, tp
+    if not bool(agree.all()):
+        sub = pk.take(agree)
+        sk = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5,
+                                  device=cuda_device)
+        sp = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5,
+                                  device=cuda_device)
+        kernels.mc_walk(ws, sub.clone(), sk, 16, **kw)
+        mcrt._walk_plain(ws, sub.clone(), sp, 16, **kw)
+        torch.cuda.synchronize()
+    for f in fields:
+        a, b = getattr(sk, f), getattr(sp, f)
+        assert float((a - b).abs().max()) <= \
+            1e-4 * float(b.abs().max()), f
+    # K4 on the same retired lanes
+    kernels.fold_terminal(model, pk_k, tk, 5)
+    mcrt._fold_terminal_plain(model, pk_k, tp, 5)
+    torch.cuda.synchronize()
+    assert kernels.fold_terminal.launches == 1
+    for f in ("collector", "collector_img", "ab_en_water"):
+        assert _totals_rel(getattr(tk, f), getattr(tp, f)) <= 1e-5, f
+        assert float((getattr(tk, f) - getattr(tp, f)).abs().max()) <= \
+            1e-5 * float(getattr(tp, f).abs().max()) + 1e-30, f
+
+
+@pytest.mark.cuda
+def test_mc_kernels_reject_bad_arguments_on_card(cuda_device):
+    m, model, pk = _mc_setup(cuda_device, n_packets=64)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                              device=cuda_device)
+    with pytest.raises(TypeError):
+        kernels.mc_walk(ws, pk._replace(x=pk.x.double()), tl, 4)
+    with pytest.raises(ValueError):
+        kernels.mc_walk(ws, pk, tl._replace(flux=tl.flux[:, :-1]), 4)
+    ws.gi = ws.gi._replace(r_lut_pack=None)
+    with pytest.raises(ValueError):
+        kernels.mc_walk(ws, pk, tl, 4)
+    with pytest.raises(ValueError):
+        kernels.fold_terminal(model, pk, tl, 4)

@@ -1,0 +1,254 @@
+"""Port parity: the Monte Carlo packet walk (K3's plain version,
+rac2d_torch.ops.mcrt._walk_plain) against the JAX walk (mcrt._mc_walk)
+from the same JAX-launched packets, and the pass-level checks of
+tests/test_mcrt.py on the port.
+
+Tolerances and why:
+- the xorshift128 stream and the RNG words after a walk: bit for bit
+  (integer arithmetic; both walks advance every lane every step);
+- status, cell and e_count on >= 99.9% of lanes, and on the lanes still
+  walking positions, directions, lam and tau to rtol 1e-5 per step
+  (with the domain size as the floor for positions and 1 for the
+  unit-vector components and tau).  XLA and torch
+  evaluate log/sin/cos/division a few ulps apart: those differences add
+  up over the steps, and a lane whose event threshold falls inside the
+  gap may take the other branch;
+- tally totals: rtol 1e-4 (f32 sums in another order) plus what the
+  lanes that took another branch carry (4x their fraction for energies,
+  one count a step each for the counters);
+- pass-level checks: the statistical bounds of tests/test_mcrt.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rac2d_tpu.constants as c
+from rac2d_tpu.io import bethell as jbethell
+from rac2d_tpu.ops import mcrt as jmcrt
+from rac2d_torch import convert
+from rac2d_torch.io import bethell as tbethell
+from rac2d_torch.ops import mcrt as tmcrt
+
+from test_mcrt import _uniform_sphere_model
+from torch_mc_fixtures import disk_cfg, torch_model, warm_tdust
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
+NQ = 128
+
+
+def _xorshift_np(st, n):
+    """Reference xorshift128 + Knuth scramble on numpy uint32."""
+    s0, s1, s2, s3 = (a.copy() for a in st)
+    out = []
+    with np.errstate(over="ignore"):
+        for _ in range(n):
+            t = s3 ^ (s3 << np.uint32(11))
+            t = t ^ (t >> np.uint32(8))
+            t = t ^ s0 ^ (s0 >> np.uint32(19))
+            s3, s2, s1, s0 = s2, s1, s0, t
+            out.append(((t * np.uint32(2654435761)) >> np.uint32(8))
+                       .astype(np.float32) * np.float32(1.0 / (1 << 24)))
+    return np.stack(out), (s0, s1, s2, s3)
+
+
+def test_xorshift_draws_bit_exact():
+    rng = np.random.default_rng(0)
+    st = tuple(rng.integers(0, 2 ** 32, 5000, dtype=np.uint32)
+               for _ in range(4))
+    st = (st[0] | np.uint32(1),) + st[1:]
+    ref_u, ref_st = _xorshift_np(st, 37)
+    tst = tuple(torch.as_tensor(a.astype(np.int64)) for a in st)
+    u, new = tmcrt.xorshift_draws(tst, 37)
+    np.testing.assert_array_equal(u.numpy(), ref_u)
+    for a, b in zip(new, ref_st):
+        np.testing.assert_array_equal(a.numpy().astype(np.uint32), b)
+
+
+def test_dust_blanketing_f32_is_stable():
+    """The X-ray dust self-blanketing factor in f32 (the walk's precision)
+    against its float64 value: the port within 1e-5; the JAX package's
+    f32 closed form cancels (a fault of the reference walk, recorded in
+    ROADMAP.md) and is off by more than 10% at grain tau ~ 1e-3."""
+    tau = np.logspace(-6, 2, 3000)
+    G = np.ones_like(tau)
+    a = np.full_like(tau, np.sqrt(1.5 / np.pi))   # tau_grain = sraw
+    t = tau
+    closed = 1.5 / t * (1 - 2 / t ** 2 * (1 - (1 + t) * np.exp(-t)))
+    series = 1 - 3 * t / 8 + t ** 2 / 10 - t ** 3 / 48 + t ** 4 / 280 \
+        - t ** 5 / 1920
+    ref = np.where(t > 1e-2, closed, series)      # float64
+    got = tbethell.dust_blanketing(
+        *(torch.as_tensor(v, dtype=torch.float32) for v in (tau, G, a)),
+        torch).double().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+    jf = np.asarray(jbethell.dust_blanketing(
+        *(jnp.asarray(v, jnp.float32) for v in (tau, G, a)), jnp))
+    assert np.abs(jf / ref - 1)[np.abs(tau - 1e-3) < 5e-4].max() > 0.1
+    # float64 input keeps the JAX package's closed form
+    np.testing.assert_allclose(
+        tbethell.dust_blanketing(*(torch.as_tensor(v) for v in (tau, G, a)),
+                                 torch).numpy(),
+        jbethell.dust_blanketing(tau, G, a), rtol=1e-12)
+
+
+def _gray():
+    # thick enough (inscribed radius x inverse mean free path up to 10)
+    # for the Modified Random Walk to take over deep inside the cell
+    model, tab, _ = _uniform_sphere_model(tau_half=20.0)
+    rng = np.random.default_rng(1)
+    lam = 10 ** rng.uniform(3.0, 6.0, 3000)   # across mrw_lam_min
+    return model, lam, np.ones_like(lam)
+
+
+@pytest.fixture(scope="module")
+def disk():
+    """The small bench disk (JAX), warm Tdust, packets from its ladder."""
+    driver, cfg = disk_cfg("jax")
+    m = driver.DiskModel(cfg)
+    m.prepare()
+    m.Tdusts = warm_tdust(m.r_cells)
+    model = jmcrt.McModel(m.tab, m.gi, m.mc_cells(), m.cfg.star_mass)
+    from rac2d_tpu.models import star as jstar
+    lam, en = jstar.packet_ladder(m.star, 20_000, 0.2, 0.1, 1e-3)
+    # no X-ray packets: their dust term takes the blanketing factor,
+    # which the JAX walk evaluates in f32 where it cancels (see
+    # test_dust_blanketing_f32_is_stable); the port's is stable
+    keep = np.nonzero(lam > c.lam_range_Xray[1] / c.Angstrom2micron)[0]
+    pick = keep[np.linspace(0, len(keep) - 1, 4000).astype(int)]
+    return model, lam[pick], en[pick] / en.max()
+
+
+def _walk_both(jmodel, lam, en, steps, use_mrw):
+    pk = jmcrt.launch_packets(jmodel, jax.random.PRNGKey(5),
+                              jnp.asarray(lam), jnp.asarray(en), 0.0, 0.95)
+    tpk = convert.packets(pk)
+    tmodel = torch_model(jmodel)
+    n, nlam = tmodel.cells.rmin.shape[0], len(jmodel.tab.lam)
+    nd = tmodel.cells.rho_dust.shape[0]
+    kw = dict(use_mrw=use_mrw, save_counts=True, save_dir=True)
+    _, jpk, jtl = jmcrt._mc_walk(
+        jmodel, jax.random.PRNGKey(0), pk,
+        jmcrt.McTallies.zeros(n, nlam, nd, 5), max_steps=steps,
+        n_quantile=NQ, finalize=False, **kw)
+    ws = tmcrt.WalkSetup(tmodel, NQ)
+    # both walks read the same Lyman-alpha table (the port builds its
+    # own in f64; tests/test_torch_mc_tables.py compares the two)
+    jws = jmcrt._WalkSetup(jmodel, NQ, use_mrw)
+    ws.lya_pair = torch.as_tensor(np.array(jws.lya_pair).reshape(-1, 2))
+    ttl = tmcrt.McTallies.zeros(n, nlam, nd, 5)
+    n_active = tmcrt._walk_plain(ws, tpk, ttl, steps, **kw)
+    return jpk, jtl, tpk, ttl, int(n_active), float(jmodel.gi.rmax_dom)
+
+
+@pytest.mark.parametrize("case,steps,use_mrw", [
+    ("gray", 1, True), ("gray", 16, True), ("gray", 16, False),
+    ("disk", 1, True), ("disk", 16, True), ("disk", 16, False)])
+def test_walk_matches_jax(case, steps, use_mrw, request):
+    if case == "gray":
+        model, lam, en = _gray()
+    else:
+        model, lam, en = request.getfixturevalue("disk")
+    jpk, jtl, tpk, ttl, n_active, L = _walk_both(model, lam, en, steps,
+                                                 use_mrw)
+    j = {f: np.asarray(getattr(jpk, f)) for f in jmcrt.Packets._fields}
+    t = {f: getattr(tpk, f).numpy() for f in jmcrt.Packets._fields}
+    # the RNG words: bit for bit on every lane
+    for f in ("rs0", "rs1", "rs2", "rs3"):
+        np.testing.assert_array_equal(t[f], j[f].view(np.int32))
+    same = (t["status"] == j["status"]) & (t["cell"] == j["cell"]) \
+        & (t["e_count"] == j["e_count"])
+    # the state of the lanes still walking: f32 ulp differences of the
+    # two libraries add up step by step, so rtol 1e-5 per step
+    rtol = 1e-5 * steps
+    ok = same.copy()
+    live = same & (j["status"] == jmcrt.ST_ACTIVE)
+    for f in ("x", "y", "z"):
+        ok &= ~live | (np.abs(t[f] - j[f]) <= rtol * (np.abs(j[f]) + L))
+    for f in ("vx", "vy", "vz", "tau"):     # unit vectors, tau ~ 1
+        ok &= ~live | (np.abs(t[f] - j[f]) <= rtol * (np.abs(j[f]) + 1.0))
+    ok &= ~live | (np.abs(t["lam"] - j["lam"]) <= rtol * np.abs(j["lam"]))
+    assert ok.mean() >= 0.999, ok.mean()
+    assert live.sum() > 0.1 * len(ok)
+    n_diff = 1.0 - same.mean()
+    assert abs(n_active - int((j["status"] == jmcrt.ST_ACTIVE).sum())) \
+        <= 1e-3 * len(ok)
+    # the walk did something: events, and after a few steps deaths
+    assert (j["e_count"] > 0).any()
+    assert steps == 1 or (j["status"] != 0).any()
+    # tally totals: 1e-4, plus what the few diverged lanes carry (up to
+    # one count per step each for the counters)
+    tol = 1e-4 + 4 * n_diff
+    n_div = int((~same).sum())
+    for f in ("flux", "mrw_path", "phc", "en_gain_abso", "cr_count"):
+        a = float(np.asarray(getattr(jtl, f), np.float64).sum())
+        b = float(getattr(ttl, f).double().sum())
+        bound = 1e-4 * abs(a) + steps * n_div if f in ("phc", "cr_count") \
+            else tol * abs(a)
+        assert abs(a - b) <= bound + 1e-30, (f, a, b)
+    da = np.abs(np.asarray(jtl.dir_flux, np.float64)).sum(0)
+    db = ttl.dir_flux.double().abs().sum(0).numpy()
+    np.testing.assert_allclose(db, da, rtol=tol)
+    if use_mrw and steps > 1 and case == "gray":
+        assert float(np.asarray(jtl.mrw_path).sum()) > 0
+
+
+def test_thin_absorption_on_the_port():
+    """tests/test_mcrt.py::test_mc_optically_thin_absorption through the
+    port's launch_packets -> mc_pass, and the same fraction as JAX within
+    MC noise (about 1% at 4000 packets; bound 5%)."""
+    model, tab, _ = _uniform_sphere_model(tau_half=0.05)
+    B = 4000
+    lam, en = np.full(B, 5.5e4), np.ones(B)
+    tmodel = torch_model(model)
+    gen = torch.Generator().manual_seed(0)
+    pk = tmcrt.launch_packets(tmodel, gen, torch.as_tensor(lam),
+                              torch.as_tensor(en), 0.0, 1.0)
+    tall = tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5)
+    pk, tall = tmcrt.mc_pass(tmodel, pk, tall, use_mrw=False)
+    assert (pk.status != tmcrt.ST_ACTIVE).all()
+    absorbed = float(tall.en_gain.sum())
+    assert 0.02 < absorbed / B < 0.2
+    assert bool(torch.isfinite(tall.flux).all())
+    jpk = jmcrt.launch_packets(model, jax.random.PRNGKey(0),
+                               jnp.asarray(lam), jnp.asarray(en), 0.0, 1.0)
+    _, jtl = jmcrt.mc_pass(model, jax.random.PRNGKey(0), jpk,
+                           jmcrt.McTallies.zeros(1, len(tab.lam), 1, 5),
+                           use_mrw=False)
+    ja = float(np.asarray(jtl.en_gain).sum())
+    assert abs(absorbed - ja) / ja < 0.05
+
+
+def test_streamed_refill_on_the_port():
+    """tests/test_mcrt.py::test_mc_pass_streamed_refill_conserves_physics
+    on the port: every pool packet counted once, the pool drained through
+    several top-ups, and the deposited energy statistically equal to the
+    full-width pass (MC noise ~ 1/sqrt(N); bound 10%)."""
+    model, tab, _ = _uniform_sphere_model(tau_half=20.0)
+    tmodel = torch_model(model)
+    N = 4096
+    lam, en = np.full(N, 3.0e5), np.ones(N)
+    gen = torch.Generator().manual_seed(7)
+    pk0 = tmcrt.launch_packets(tmodel, gen, torch.as_tensor(lam),
+                               torch.as_tensor(en), 0.0, 1.0)
+    _, tl_a = tmcrt.mc_pass(tmodel, pk0,
+                            tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5),
+                            use_mrw=True, max_steps=40_000)
+    refills, stats = [], {}
+    _, tl_b, fates = tmcrt.mc_pass_streamed(
+        tmodel, gen, lam, en, 0.0, 1.0,
+        tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5), max_batch=512,
+        steps_per_call=64, max_steps=40_000, use_mrw=True, compact_floor=64,
+        progress_cb=lambda done, act, left: refills.append(left),
+        stats=stats)
+    assert refills[0] > 0 and refills[-1] == 0
+    assert stats["refills"] > 2 and stats["compactions"] >= 1
+    assert sum(fates.values()) == N
+    assert fates["active"] == 0
+    en_a = float(tl_a.en_gain.sum())
+    en_b = float(tl_b.en_gain.sum())
+    assert en_a > 0
+    np.testing.assert_allclose(en_b, en_a, rtol=0.1)
+    assert bool(torch.isfinite(tl_b.flux).all())
