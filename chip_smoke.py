@@ -10,16 +10,24 @@ Phases (each prints its result and seconds; any failure exits non-zero):
   3. kernels K1 (blocked LU factor) and K2 (block substitution) against
      their plain PyTorch versions on the card, at the shapes of the main
      path: B=256 lanes, n=485 (padded to N=512), on row/column-equilibrated
-     I - cJ matrices made from a numpy seed;
-  4. time K1/K2 and their plain versions (CUDA events, in turns
-     plain, kernel, kernel, plain);
+     I - cJ matrices made from a numpy seed; then K1 and K2 at B in {1, 3}
+     and n in {1, 64, 65, 130, 512, 600} (600: K1 takes the trailing
+     columns in two slabs), and on matrices whose pivots reach
+     the 1e-20 floor (the floored pivot must keep its sign);
+  4. time K1/K2, their plain versions and their library yardsticks
+     (torch.linalg.lu_factor_ex(pivot=False), torch.linalg.lu_solve with
+     identity pivots; CUDA events, in turns plain, kernel, library,
+     library, kernel, plain), and print each kernel's bound: the larger of
+     its f32 FMA work over 67 TFLOP/s and its bytes (inputs read once,
+     outputs written once) over 3.35 TB/s;
   5. the slice: the coupled chemistry+temperature pool sweep through
      ChemicalODE(net, thermal=ThermalBalance(net)).solve_pool on the
      shipped network (NEQ=485), window W=256, per-lane retry ladder of 3
      levels, over a pool of 512 random disk cells (the bench.py recipe,
      seed 0) plus the 3 production cells of tests/test_chem_production.py,
-     1e-8 -> 1e3 yr; the kernels' launch counts over this run must be > 0,
-     and the final states must be finite, physical and conserve elements;
+     1e-8 -> 1e3 yr; the kernels' launch counts over this run must be > 0
+     (printed with the BDF round count and launches per round), and the
+     final states must be finite, physical and conserve elements;
   6. 8 of those lanes re-solved with the plain LU on the card: key
      species within 5% of phase 5's final states;
   7. kernel K3 (the Monte Carlo packet walk) against its plain version on
@@ -46,10 +54,14 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      8192 steps) with the kernels and with the plain walk and fold, from
      the same cells and generator seed: median |dTdust|/Tdust < 3% over
      active cells, total absorbed energy in active cells within 2%.
+Phases 7 and 8 also print the bounds of K3 and K4 (bytes: the packet
+state read and written once, the tables read once, the tally bins the run
+touched read and written once); no single PyTorch call computes either.
 Phases 5-6 run to T_MAX (1e2 yr) to leave time for the MC phases.
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
-for each TPU probe kernel that K3 or K4 replaces) and the card's
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+for each TPU probe kernel that K3 or K4 replaces, each with its time,
+bound, plain and library times and launches) and the card's nvidia-smi
+line; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -96,6 +108,10 @@ PROBES = [
 ]
 MC_BATCH = 262_144
 MC_STEPS = 64
+# the card's published peaks (H100 SXM data sheet, 700 W): f32 outside the
+# tensor cores and device-memory bandwidth
+F32_FLOPS = 67e12
+HBM_BPS = 3.35e12
 
 
 def say(msg):
@@ -214,62 +230,180 @@ class Fail(Exception):
     """A phase failed; the message says which and why."""
 
 
-def check_kernels(dev, B=W, n=485):
-    """Phase 3: K1/K2 vs their plain versions on the card."""
+def rel_per_lane(a, b):
+    """max over lanes of max |a - b| / max(max |b|, 1) within the lane."""
+    dims = tuple(range(1, a.dim()))
+    return float(((a - b).abs().amax(dim=dims)
+                  / b.abs().amax(dim=dims).clamp_min(1.0)).max())
+
+
+def k1_k2_case(A, b):
+    """K1 then K2 on (A, b) against block_lu / block_lu_solve: the largest
+    relative difference per lane of lu, linv, uinv and x."""
     from rac2d_torch.ops import blocklu, kernels
-    t0 = time.time()
-    A, b = newton_matrices(B, n, 0, dev)
     fac = kernels.block_lu_factor(A)
     x = kernels.block_lu_solve(fac, b)
     torch.cuda.synchronize()
     ref = blocklu.block_lu(A)
     xr = blocklu.block_lu_solve(ref, b)
-    torch.cuda.synchronize()
-    err_fac = 0.0
+    rel = {k: rel_per_lane(getattr(fac, k), getattr(ref, k))
+           for k in ("lu", "linv", "uinv")}
+    rel["x"] = rel_per_lane(x, xr)
+    return fac, ref, x, xr, rel
+
+
+def check_kernels(dev, B=W, n=485):
+    """Phase 3: K1/K2 vs their plain versions on the card."""
+    from rac2d_torch.ops import blocklu
+    t0 = time.time()
+    A, b = newton_matrices(B, n, 0, dev)
+    fac, ref, x, xr, rel = k1_k2_case(A, b)
+    err_fac = max(float((getattr(fac, k) - getattr(ref, k)).abs().amax())
+                  for k in ("lu", "linv", "uinv"))
     for name in ("lu", "linv", "uinv"):
-        k_, p_ = getattr(fac, name), getattr(ref, name)
-        err = float((k_ - p_).abs().amax())
-        err_fac = max(err_fac, err)
-        rel = float(((k_ - p_).abs().amax(dim=(-2, -1))
-                     / p_.abs().amax(dim=(-2, -1)).clamp_min(1.0)).max())
-        say(f"phase 3 K1 {name}: max abs diff {err:.3e}, max rel {rel:.3e} "
-            f"(tol 1e-4)")
-        if not rel <= 1e-4:
+        say(f"phase 3 K1 {name}: max rel {rel[name]:.3e} (tol 1e-4)")
+        if not rel[name] <= 1e-4:
             raise Fail(f"phase 3: K1 {name} disagrees with block_lu")
     err_x = float((x - xr).abs().amax())
-    rel_x = float(((x - xr).abs().amax(1)
-                   / xr.abs().amax(1).clamp_min(1.0)).max())
     res = float(((A.double() @ x.double()[..., None])[..., 0]
                  - b.double()).abs().amax())
-    say(f"phase 3 K2: max abs diff {err_x:.3e}, max rel {rel_x:.3e} "
+    say(f"phase 3 K2: max abs diff {err_x:.3e}, max rel {rel['x']:.3e} "
         f"(tol 1e-4); max |A x - b| {res:.3e}")
-    if not rel_x <= 1e-4 or not np.isfinite(res):
+    if not rel["x"] <= 1e-4 or not np.isfinite(res):
         raise Fail("phase 3: K2 disagrees with block_lu_solve")
-    say(f"phase 3 done: B={B} n={n}, {time.time() - t0:.1f} s")
+    # the edges of the shape range: one lane, a few lanes, n from 1 to
+    # a whole number of panels and just past one
+    worst = {}
+    for Bs in (1, 3):
+        for ns in (1, 64, 65, 130, 512, 600):
+            As, bs = newton_matrices(Bs, ns, ns + Bs, dev)
+            r = k1_k2_case(As, bs)[-1]
+            worst[(Bs, ns)] = max(r.values())
+    say("phase 3 K1+K2 shapes, max rel over lu, linv, uinv, x (tol 1e-4): "
+        + ", ".join(f"B={k[0]} n={k[1]} {v:.2e}" for k, v in worst.items()))
+    if not max(worst.values()) <= 1e-4:
+        raise Fail("phase 3: K1/K2 disagree with their plain versions")
+    # pivots below the floor, with their signs
+    Af, want = blocklu.floored_pivot_matrices(dev)
+    bf = torch.ones(Af.shape[:2], dtype=torch.float32, device=dev)
+    facf, _, _, _, rf = k1_k2_case(Af, bf)
+    got = {k: float(facf.lu[k[0], k[1], k[1]]) for k in want}
+    exact = all(got[k] == float(np.float32(v)) for k, v in want.items())
+    say(f"phase 3 pivot floor: {len(want)} floored pivots exact with sign: "
+        f"{exact}; max rel " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                         rf.items()) + " (tol 1e-4)")
+    if not exact or not max(rf.values()) <= 1e-4:
+        raise Fail("phase 3: K1 floors a pivot unlike block_lu")
+    say(f"phase 3 done: B={B} n={n} and {len(worst) + 1} more cases, "
+        f"{time.time() - t0:.1f} s")
     return dict(A=A, b=b, fac=fac, ref=ref, err_fac=err_fac, err_x=err_x)
 
 
+def k1_work(B, n, N):
+    """(flop, bytes) that K1's function needs at [B, n, n], whatever the
+    algorithm: the no-pivot LU of the n x n matrix (at a trailing size m,
+    m multipliers and an m x m rank-1 update: m + 2 m^2 flop, ~2/3 n^3 in
+    all) and, for each diagonal block of real size s, the inverses of its
+    unit-lower (s(s-1)(s-2)/3 flop) and upper (s(s-1)(s+1)/3 + s)
+    triangles.  Bytes: A read once, lu, linv and uinv written once."""
+    bk = 64
+    flop = sum(m + 2 * m * m for m in range(n))
+    for kb in range(0, n, bk):
+        s = min(bk, n - kb)
+        flop += s * (s - 1) * (s - 2) // 3 + s * (s - 1) * (s + 1) // 3 + s
+    nbytes = 4 * (n * n + N * N + 2 * N * bk)
+    return B * flop, B * nbytes
+
+
+def k2_work(B, n, N):
+    """(flop, bytes) that K2's function needs: each entry of the n x n
+    factor once (the off-diagonal blocks of lu inside n, and the unit-lower
+    triangle of linv and the upper triangle of uinv at each diagonal
+    block's real size: n^2 floats in all), b read and x written; one FMA
+    an entry."""
+    return B * 2 * n * n, B * 4 * (n * n + 2 * n)
+
+
+def bound(flop, nbytes):
+    """(bound_ms, bound_by): the larger of f32 FMA work over F32_FLOPS and
+    bytes over HBM_BPS."""
+    t_op, t_by = flop / F32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
 def time_kernels(A, b, fac, ref, **_):
-    """Phase 4: mean ms of K1/K2 and their plain versions, in turns
-    plain, kernel, kernel, plain."""
+    """Phase 4: mean ms of K1/K2, their plain versions and their library
+    yardsticks, in turns plain, kernel, library, library, kernel, plain;
+    and their bounds."""
     from rac2d_torch.ops import blocklu, kernels
     t0 = time.time()
-    k1_pa = cuda_ms(lambda: blocklu.block_lu(A), 3)
-    k1_a = cuda_ms(lambda: kernels.block_lu_factor(A), 10)
-    k1_b = cuda_ms(lambda: kernels.block_lu_factor(A), 10)
-    k1_pb = cuda_ms(lambda: blocklu.block_lu(A), 3)
-    k2_pa = cuda_ms(lambda: blocklu.block_lu_solve(ref, b), 10)
-    k2_a = cuda_ms(lambda: kernels.block_lu_solve(fac, b), 50)
-    k2_b = cuda_ms(lambda: kernels.block_lu_solve(fac, b), 50)
-    k2_pb = cuda_ms(lambda: blocklu.block_lu_solve(ref, b), 10)
     B, n = b.shape
-    say(f"phase 4 K1 factor B={B} n={n}: kernel {k1_a:.3f}/{k1_b:.3f} ms, "
-        f"plain {k1_pa:.3f}/{k1_pb:.3f} ms")
-    say(f"phase 4 K2 solve  B={B} n={n}: kernel {k2_a:.4f}/{k2_b:.4f} ms, "
-        f"plain {k2_pa:.4f}/{k2_pb:.4f} ms")
+    N = fac.lu.shape[-1]
+
+    def k1_lib():
+        return torch.linalg.lu_factor_ex(A, pivot=False)
+
+    piv = torch.arange(1, N + 1, dtype=torch.int32,
+                       device=A.device).expand(B, N).contiguous()
+    bp = torch.zeros(B, N, 1, dtype=torch.float32, device=A.device)
+    bp[:, :n, 0] = b
+
+    def k2_lib():
+        return torch.linalg.lu_solve(fac.lu, piv, bp)
+
+    lib = {}
+    for name, fn in (("K1", k1_lib), ("K2", k2_lib)):
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            lib[name] = None
+        except Exception as e:          # a refusal is recorded, not fatal
+            lib[name] = f"{type(e).__name__}: {e}".splitlines()[0]
+            say(f"phase 4 {name} library call refused: {lib[name]}")
+            continue
+        if name == "K1":
+            d = rel_per_lane(out[0], fac.lu[:, :n, :n])
+            say(f"phase 4 K1 library: lu_factor_ex(pivot=False) LU within "
+                f"{d:.2e} of K1's lu per lane, info max "
+                f"{int(out[2].max())}")
+        else:
+            d = rel_per_lane(out[:, :n, 0],
+                             kernels.block_lu_solve(fac, b))
+            say(f"phase 4 K2 library: lu_solve within {d:.2e} of K2")
+
+    def turns(plain, kern, libfn, reps_p, reps_k):
+        t = {"plain": [cuda_ms(plain, reps_p)], "kernel": [],
+             "library": []}
+        t["kernel"].append(cuda_ms(kern, reps_k))
+        if libfn is not None:
+            t["library"] += [cuda_ms(libfn, reps_k), cuda_ms(libfn, reps_k)]
+        t["kernel"].append(cuda_ms(kern, reps_k))
+        t["plain"].append(cuda_ms(plain, reps_p))
+        return t
+
+    t1 = turns(lambda: blocklu.block_lu(A),
+               lambda: kernels.block_lu_factor(A),
+               k1_lib if lib["K1"] is None else None, 3, 10)
+    t2 = turns(lambda: blocklu.block_lu_solve(ref, b),
+               lambda: kernels.block_lu_solve(fac, b),
+               k2_lib if lib["K2"] is None else None, 10, 50)
+    out = {}
+    for name, t, work in (("K1", t1, k1_work(B, n, N)),
+                          ("K2", t2, k2_work(B, n, N))):
+        b_ms, b_by = bound(*work)
+        ms = float(np.mean(t["kernel"]))
+        lib_ms = float(np.mean(t["library"])) if t["library"] else None
+        fmt = "/".join(f"{v:.4f}" for v in t["kernel"])
+        lfmt = ("/".join(f"{v:.4f}" for v in t["library"]) + " ms"
+                if t["library"] else f"— ({lib[name]})")
+        say(f"phase 4 {name} B={B} n={n} N={N}: kernel {fmt} ms, plain "
+            + "/".join(f"{v:.3f}" for v in t["plain"]) + f" ms, library "
+            f"{lfmt}; bound {b_ms:.4f} ms by {b_by} ({work[0]:.4e} flop, "
+            f"{work[1]:.4e} B), kernel at {b_ms / ms:.1%} of it")
+        out[name] = dict(ms=ms, plain_ms=float(np.mean(t["plain"])),
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     say(f"phase 4 done: {time.time() - t0:.1f} s")
-    return dict(k1_ms=(k1_a + k1_b) / 2, k1_plain=(k1_pa + k1_pb) / 2,
-                k2_ms=(k2_a + k2_b) / 2, k2_plain=(k2_pa + k2_pb) / 2)
+    return out
 
 
 def run_slice(dev, n_bench=512, width=W, t_max=T_MAX):
@@ -323,7 +457,10 @@ def run_slice(dev, n_bench=512, width=W, t_max=T_MAX):
         f"{int(out.n_lu.sum())} lane-LUs, {int(out.n_jeval.sum())} "
         f"lane-Jacobians, {calls[0]} advance calls, wall {wall:.1f} s, "
         f"{steps / wall:.1f} lane-steps/s")
-    say(f"phase 5 launches: K1 {launches[0]}, K2 {launches[1]}")
+    rounds = out.n_rounds
+    say(f"phase 5 launches: K1 {launches[0]}, K2 {launches[1]} over "
+        f"{rounds} BDF rounds ({launches[0] / max(rounds, 1):.3f} and "
+        f"{launches[1] / max(rounds, 1):.3f} a round)")
     if min(launches) <= 0:
         raise Fail("phase 5: the slice did not go through both kernels")
     yf = out.ys[:, -1].numpy()
@@ -368,7 +505,7 @@ def run_slice(dev, n_bench=512, width=W, t_max=T_MAX):
         f"{worst:.3e} (tol 5e-2), {time.time() - t0:.1f} s")
     if not worst < 0.05:
         raise Fail("phase 6: the slice and the plain LU re-solve disagree")
-    return launches
+    return launches, rounds
 
 
 # --------------------------------------------------------------------
@@ -429,6 +566,16 @@ def event_ms(fn, reps):
     return float(np.mean(out))
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def touched_bytes(tl, fields):
+    """Bytes of the tally bins a run made non-zero, read and written once."""
+    return sum(2 * int((getattr(tl, f) != 0).sum())
+               * getattr(tl, f).element_size() for f in fields)
+
+
 def check_walk(m, dev):
     """Phase 7: K3 against _walk_plain on one 64-step chunk."""
     from rac2d_torch.ops import kernels, mcrt
@@ -469,6 +616,17 @@ def check_walk(m, dev):
     tot = {f: (float(getattr(tk, f).double().sum()),
                float(getattr(tp, f).double().sum()))
            for f in ("flux", "mrw_path")}
+    fields = ["flux", "mrw_path"]
+    fields += ["phc", "en_gain_abso", "cr_count"] if kw["save_counts"] else []
+    fields += ["dir_flux"] if kw["save_dir"] else []
+    # K3's bound for this chunk: the packet state read and written once,
+    # the tables read once, the tally bins it touched read and written
+    pk_bytes = 2 * nbytes(*(getattr(pk0, f) for f in kernels._PK_F32
+                            + kernels._PK_I32))
+    tab_bytes = nbytes(ws.cellmat, ws.tabmat, ws.lya_pair, ws.reemit_lam,
+                       ws.mrw_lnx, ws.gi.r_lut_pack, ws.gi.zc_pack)
+    tal_bytes = touched_bytes(tk, fields)
+    bound_ms = (pk_bytes + tab_bytes + tal_bytes) / HBM_BPS * 1e3
     rel = {f: abs(a - b) / max(abs(b), 1e-30) for f, (a, b) in tot.items()}
     fates = mcrt.packet_fates(pk_k.status)
     say(f"phase 7 K3 walk: B={MC_BATCH}, {MC_STEPS} steps, {m.grid.n_cells} "
@@ -490,9 +648,6 @@ def check_walk(m, dev):
         pk_k, pk_p, tk, tp = sub.clone(), sub.clone(), zeros(), zeros()
         kernels.mc_walk(ws, pk_k, tk, MC_STEPS, **kw)
         mcrt._walk_plain(ws, pk_p, tp, MC_STEPS, **kw)
-    fields = ["flux", "mrw_path"]
-    fields += ["phc", "en_gain_abso", "cr_count"] if kw["save_counts"] else []
-    fields += ["dir_flux"] if kw["save_dir"] else []
     bins = {}
     for f in fields:
         a, b = getattr(tk, f), getattr(tp, f)
@@ -517,14 +672,18 @@ def check_walk(m, dev):
     k_b = event_ms(run(kernels.mc_walk), 5)
     p_b = event_ms(run(mcrt._walk_plain), 2)
     say(f"phase 7 times, one {MC_STEPS}-step chunk at B={MC_BATCH}: kernel "
-        f"{k_a:.3f}/{k_b:.3f} ms, plain {p_a:.1f}/{p_b:.1f} ms")
+        f"{k_a:.3f}/{k_b:.3f} ms, plain {p_a:.1f}/{p_b:.1f} ms; bound "
+        f"{bound_ms:.4f} ms by bytes (packets {pk_bytes}, tables "
+        f"{tab_bytes}, touched tally bins {tal_bytes} B), kernel at "
+        f"{bound_ms / ((k_a + k_b) / 2):.2%} of it; library call: none")
     say(f"phase 7 done: {time.time() - t0:.1f} s")
     if not (share >= 0.99 and rng_eq and rel["flux"] <= 1e-3
             and rel["mrw_path"] <= 1e-3
             and all(r <= 1e-4 for _, r in bins.values())):
         raise Fail("phase 7: K3 disagrees with its plain version")
     return dict(model=model, pk=pk_k, zeros=zeros, err=err,
-                ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2)
+                ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2,
+                bound_ms=bound_ms)
 
 
 def check_fold(model, pk, zeros, **_):
@@ -558,11 +717,20 @@ def check_fold(model, pk, zeros, **_):
     k_a = event_ms(run(kernels.fold_terminal), 20)
     k_b = event_ms(run(kernels.fold_terminal), 20)
     p_b = event_ms(run(mcrt._fold_terminal_plain), 5)
+    # K4's bound: the ten lane fields it reads once, the bins it touched
+    # read and written once
+    by = nbytes(*(getattr(pk, f) for f in ("x", "y", "z", "vx", "vy", "vz",
+                                           "lam", "en", "cell", "status"))) \
+        + touched_bytes(tk, ("collector", "collector_img", "ab_en_water"))
+    bound_ms = by / HBM_BPS * 1e3
     say(f"phase 8 times at B={pk.x.shape[0]}: kernel {k_a:.4f}/{k_b:.4f} "
-        f"ms, plain {p_a:.3f}/{p_b:.3f} ms; {time.time() - t0:.1f} s")
+        f"ms, plain {p_a:.3f}/{p_b:.3f} ms; bound {bound_ms:.5f} ms by "
+        f"bytes ({by} B), kernel at {bound_ms / ((k_a + k_b) / 2):.2%} of "
+        f"it; library call: none; {time.time() - t0:.1f} s")
     if not max(rels.values()) <= 1e-5:
         raise Fail("phase 8: K4 disagrees with its plain version")
-    return dict(err=err, ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2)
+    return dict(err=err, ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2,
+                bound_ms=bound_ms)
 
 
 def run_mc_slice(m):
@@ -674,16 +842,15 @@ def main():
         chk = check_kernels(dev)
         tm = time_kernels(**chk)
         del chk["A"], chk["b"], chk["fac"], chk["ref"]
-        launches = run_slice(dev)
-        rows += [
-            {"name": "blocklu_factor", "route": "cuda", "source": SOURCE,
-             "replaces": K1_REPLACES, "launches": launches[0],
-             "max_abs_err": chk["err_fac"], "ms": tm["k1_ms"],
-             "plain_ms": tm["k1_plain"]},
-            {"name": "blocklu_solve", "route": "cuda", "source": SOURCE,
-             "replaces": K2_REPLACES, "launches": launches[1],
-             "max_abs_err": chk["err_x"], "ms": tm["k2_ms"],
-             "plain_ms": tm["k2_plain"]}]
+        launches, _ = run_slice(dev)
+        for name, key, replaces, err, nl in (
+                ("blocklu_factor", "K1", K1_REPLACES, chk["err_fac"],
+                 launches[0]),
+                ("blocklu_solve", "K2", K2_REPLACES, chk["err_x"],
+                 launches[1])):
+            rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                         "replaces": replaces, "launches": nl,
+                         "max_abs_err": err, **tm[key]})
         # ---- 7-10. the Monte Carlo dust pass ----
         t0 = time.time()
         m = bench_disk(dev)
@@ -700,7 +867,9 @@ def main():
             rows.append({"name": f"{name} ({row})", "route": "cuda",
                          "source": MC_SOURCE, "replaces": replaces,
                          "launches": n, "max_abs_err": r["err"],
-                         "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                         "ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                         "library_ms": None})
     except Fail as e:
         say(f"FAIL {e}")
         return 1

@@ -13,8 +13,13 @@ Precision policy (the same as the JAX package's):
   about three decimal digits inside a factorization, so it is switched off
   here for both matmuls and cuDNN, and the hand kernels use plain f32 FMA.
 
-The package picks no device: every entry point takes an explicit
-``device`` (or follows the device of the tensors it is given).
+Every public entry point (``DiskModel``, ``ChemicalODE``,
+``ThermalBalance``, ``odesys.tolerance_ladder``, the weight-carrying
+functions of ``convert``) runs on the card, ``device="cuda"``, unless the
+caller passes another device, as the CPU tests pass ``device="cpu"``.
+Nothing falls back to the CPU: without CUDA a default call raises
+torch's own error.  Internal helpers have no default; they take the
+caller's device or follow the device of the tensors they are given.
 """
 
 import torch

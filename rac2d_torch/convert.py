@@ -44,24 +44,24 @@ def chem_net(net) -> ChemNet:
                       for f in dataclasses.fields(ChemNet)})
 
 
-def rate_tables(tab, device="cpu") -> RateTables:
+def rate_tables(tab, device="cuda") -> RateTables:
     return _namedtuple(tab, RateTables, device)
 
 
-def incidence(inc, device="cpu") -> Incidence:
+def incidence(inc, device="cuda") -> Incidence:
     return _namedtuple(inc, Incidence, device)
 
 
-def cell_env(env, device="cpu") -> CellEnv:
+def cell_env(env, device="cuda") -> CellEnv:
     """A CellEnv with any leading lane axes (0-d fields for one cell)."""
     return _namedtuple(env, CellEnv, device)
 
 
-def thermal_env(tenv, device="cpu") -> ThermalEnv:
+def thermal_env(tenv, device="cuda") -> ThermalEnv:
     return _namedtuple(tenv, ThermalEnv, device)
 
 
-def thermal_balance(tb, device="cpu") -> ThermalBalance:
+def thermal_balance(tb, device="cuda") -> ThermalBalance:
     """A ThermalBalance with the JAX object's configuration and its
     lookup tables and reaction-heat arrays (copied, not reloaded)."""
     cfg = HcConfig(**dataclasses.asdict(tb.cfg))
@@ -93,7 +93,7 @@ def mc_tables(tab) -> optics.McTables:
     return optics.McTables(*(np.array(v) for v in tab[:-1]), lam_seg=seg)
 
 
-def grid_index(gi, device="cpu") -> geometry.GridIndex:
+def grid_index(gi, device="cuda") -> geometry.GridIndex:
     """GridIndex with the same tables (f32 packed ones stay f32)."""
     out = {}
     for f in geometry.GridIndex._fields:
@@ -106,11 +106,11 @@ def grid_index(gi, device="cpu") -> geometry.GridIndex:
     return geometry.GridIndex(**out)
 
 
-def mc_cells(cells, device="cpu") -> mcrt.McCells:
+def mc_cells(cells, device="cuda") -> mcrt.McCells:
     return _namedtuple(cells, mcrt.McCells, device)
 
 
-def packets(pk, device="cpu") -> mcrt.Packets:
+def packets(pk, device="cuda") -> mcrt.Packets:
     """Packets with float32/int32 arrays; the uint32 RNG words keep
     their bits as int32."""
     out = {}
@@ -122,7 +122,7 @@ def packets(pk, device="cpu") -> mcrt.Packets:
     return mcrt.Packets(**out)
 
 
-def mc_tallies(t, device="cpu") -> mcrt.McTallies:
+def mc_tallies(t, device="cuda") -> mcrt.McTallies:
     """McTallies in the dtype the JAX object has (f32 during a pass)."""
     return mcrt.McTallies(*(torch.as_tensor(np.array(v), device=device)
                             for v in t))

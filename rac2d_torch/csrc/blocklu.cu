@@ -16,27 +16,62 @@
 // inverses of each diagonal block's unit-lower and upper triangles; then
 // substitution as block matrix-vector products with those inverses.
 //
-// What bounds them on this card, and what the design does about it.
-//   The TPU kernels keep CB=2 whole matrices resident in VMEM.  One
-//   512x512 f32 matrix is 1 MB and an SM has at most 227 KB of shared
-//   memory, so here the matrix lives in device memory (in the output `lu`
-//   buffer, which is factored in place) and one CTA per lane streams
-//   64x64 tiles through shared memory.
-//   K1 at N=512: ~2/3 N^3 = 89 MFLOP per lane, 23 GFLOP for 256 lanes,
-//   against ~1.2 GB of tile traffic (mostly L2-resident panels).  Its
-//   floor is the f32 FMA rate (67 TFLOP/s dense, no tensor cores: the
-//   factorization must keep full f32, so no TF32) and the 3 x 64
-//   sequential, barrier-separated steps per panel of the diagonal-block
-//   factor and inverses, which no other CTA can help with.  The design
-//   gives each lane its own CTA (256 lanes fill 132 SMs at 3 CTAs/SM),
-//   register-blocks the tile products 4x4 per thread from padded
-//   (conflict-free) shared memory, and computes the two triangular
-//   inverses in one barrier loop.  wgmma/TMA and several lanes per CTA
-//   are left to later work.
-//   K2 reads each lane's packed LU once (~1 MB) plus the block inverses
-//   (256 KB): it is bound by device-memory bandwidth (3.35 TB/s).  One
-//   CTA per lane keeps the 512-vector in shared memory; each warp reduces
-//   whole 64-wide rows with coalesced 256-byte reads and shuffles.
+// What bounds K1 on this card.  The function needs, per lane at n=485,
+// the no-pivot LU of the n x n matrix (sum of m + 2 m^2 over m < n, about
+// 2/3 n^3: 7.59e7 flop) and the inverses of the 8 diagonal blocks' two
+// triangles (about 2/3 s^3 for a block of s rows, 1.2e6): 7.72e7 flop, 1.98e10 at B=256 lanes, or 0.29 ms at the
+// 67 TFLOP/s f32 FMA rate.  The factorization keeps full f32 (no TF32,
+// no tensor cores), so that is K1's bound; reading A and writing lu, linv
+// and uinv once (576 MB at B=256, n=485) would take 0.17 ms.  The blocked
+// algorithm itself does 1.08e8 flop a lane at N=512 (the padded panels,
+// and the panel products through the block inverses, which are dense
+// products where a triangular solve would do half).
+//
+// The design.  A 512x512 f32 matrix is 1 MB, an SM holds at most 227 KB,
+// so the matrix is factored in place in device memory (the `lu` output)
+// by one CTA of 256 threads per lane (256 lanes: 2 waves over 132 SMs).
+// For each panel k:
+//   - the diagonal block is factored and both triangles inverted with
+//     the block held in registers, 16 values per thread, four steps per
+//     barrier group: a group's 4 rows (and 4 columns) go through shared
+//     memory, each thread finishes them at its own column and applies the
+//     4 steps in their one-at-a-time order (one barrier per group of
+//     the factor and of the inverses: 32 a panel instead of 192).
+//     Multipliers are x * (1/pivot), not x / pivot (one rounding apart);
+//   - the row panel U_k* = Linv_k A_k* (64 x up to 448 columns, 112 KB)
+//     is copied in with cp.async, multiplied in place and then stays in
+//     shared memory for the whole trailing update: it is read from device
+//     memory once per panel;
+//   - the trailing matrix is walked by 64-row blocks: each block's column
+//     panel tile L_r,k = A_r,k Uinv_k is computed, stored and used at once
+//     to update that block row of A22 in chunks of 64 x 256.  A chunk's
+//     A22 values are copied into shared memory with cp.async before its
+//     FMAs start and waited for only at its epilogue, which subtracts the
+//     product (held in registers) and stores the result with 128-bit
+//     stores.  Each A22 element is read once and written once per panel.
+//   - the trailing product runs 8x8 register tiles per thread: per k
+//     step 4 conflict-free 128-bit shared loads (the L tile kept k-major,
+//     a warp-wide broadcast; the row panel row-major) feed 64 FMAs, 4
+//     FMAs per 32-bit word read.
+// Its own traffic floor is the A22 row blocks through device memory once
+// per panel: sum_k m_k^2 * 8 B = 4.6 MB, ~5.5 MB with the panels, per
+// lane; 1.4 GB or 0.42 ms at 3.35 TB/s for 256 lanes, above the
+// function's FMA bound.  Panel 0 reads A itself, padded with identity on
+// the fly (4-byte zero-filling cp.async, since A's rows are not 16-byte
+// aligned), and writes every element of lu, so there is no separate
+// padding pass.  With one 215 KB CTA per SM the 256 lanes run in two
+// waves, and the diagonal block's serial steps are not overlapped with
+// other work.  Left for later work: a thread-block cluster per lane (so that
+// the working set of the lanes in flight fits in the 50 MB L2 and the
+// diagonal block's serial steps overlap the previous panel's trailing
+// update), and a second micro-tile for the ragged last chunk of a row.
+// For N > 512 the trailing columns are taken in slabs of at most 448, the
+// row panel slab by slab (each slab re-reads the finished L tiles).
+//
+// K2 reads each lane's packed LU once (~1 MB) plus the block inverses
+// (256 KB): it is bound by device-memory bandwidth (3.35 TB/s).  One
+// CTA per lane keeps the 512-vector in shared memory; each warp reduces
+// whole 64-wide rows with coalesced 256-byte reads and shuffles.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -44,69 +79,148 @@
 namespace {
 
 constexpr int BK = 64;            // panel size (same as the JAX package)
-constexpr int LD = BK + 1;        // padded shared-memory row stride
 constexpr int NT = 256;           // threads per CTA
 constexpr int NWARP = NT / 32;
 constexpr float PIV_FLOOR = 1e-20f;
-constexpr size_t FACTOR_SMEM = 4 * BK * LD * sizeof(float);
+
+// K1 shared memory (floats).  LDT: row stride of the 64x64 tiles, a
+// multiple of 4 for 128-bit access; SW: widest row-panel slab; CW: the
+// trailing update's chunk width (8 columns per thread, 32 threads).
+constexpr int LDT = BK + 4;
+constexpr int TILE = BK * LDT;
+constexpr int SW = 448;
+constexpr int CW = 256;
+constexpr int RP_FLOATS = BK * SW;          // row panel slab, 112 KB
+constexpr int A22_FLOATS = BK * CW;         // A22 chunk, 64 KB
+constexpr size_t FACTOR_SMEM =
+    (size_t)(RP_FLOATS + A22_FLOATS + 2 * TILE) * sizeof(float);
+
+constexpr int DQ = BK * BK / NT;       // diagonal-block values per thread
 
 __device__ __forceinline__ float floor_pivot(float p) {
   return fabsf(p) < PIV_FLOOR ? (p < 0.f ? -PIV_FLOOR : PIV_FLOOR) : p;
 }
 
-// Tile (r0, c0) of a row-major N x N matrix <-> shared memory.  M is
-// written by this kernel too, so it must not be read through the
-// read-only cache (no __restrict__ here).
-__device__ __forceinline__ void load_tile(float* S, const float* M, int N,
-                                          int r0, int c0) {
-  for (int e = threadIdx.x; e < BK * BK; e += NT) {
-    const int i = e >> 6, j = e & 63;
-    S[i * LD + j] = M[(size_t)(r0 + i) * N + c0 + j];
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 64 rows x w columns (w a multiple of 4) of a row-major matrix with row
+// stride ld_src, from device memory into shared memory (row stride
+// ld_dst), 16 bytes per cp.async.  Commits one group.
+__device__ __forceinline__ void copy_rows_async(float* dst, int ld_dst,
+                                                const float* src,
+                                                size_t ld_src, int w) {
+  for (int i = threadIdx.x >> 6; i < BK; i += NT / 64)
+    for (int j = (threadIdx.x & 63) << 2; j < w; j += 256)
+      cp_async16(dst + i * ld_dst + j, src + i * ld_src + j);
+  cp_async_commit();
+}
+
+// A [n, n] as the padded N x N matrix: identity beyond n
+__device__ __forceinline__ float a_pad(const float* A, int n, int i, int j) {
+  return (i < n && j < n) ? A[(size_t)i * n + j] : (i == j ? 1.f : 0.f);
+}
+
+// copy_rows_async for panel 0, straight from A [n, n], whose rows are not
+// 16-byte aligned: 4 bytes per cp.async, rows row0.., columns col0..
+// col0+w-1, zero-filled beyond n (the callers' blocks hold no diagonal
+// entry, or set the padding's ones themselves).  Commits one group.
+__device__ __forceinline__ void copy_rows_async_a(float* dst, int ld_dst,
+                                                  const float* A, int n,
+                                                  int row0, int col0, int w) {
+  for (int i = threadIdx.x >> 6; i < BK; i += NT / 64)
+    for (int j = threadIdx.x & 63; j < w; j += 64) {
+      const int gi = row0 + i, gj = col0 + j;
+      const bool in = gi < n && gj < n;
+      const float* src = in ? A + (size_t)gi * n + gj : A;
+      const unsigned s =
+          (unsigned)__cvta_generic_to_shared(dst + i * ld_dst + j);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                   "l"(src), "r"(in ? 4 : 0));
+    }
+  cp_async_commit();
+}
+
+// copy_rows_async_a fills A22 with zeros beyond n: put back the padding's
+// ones on the diagonal (row gr, columns gc..gc+3)
+__device__ __forceinline__ void pad_ones(float4& v, int gr, int gc, int n) {
+  if (gr >= n) {
+    const int e = gr - gc;
+    v.x = e == 0 ? 1.f : v.x;
+    v.y = e == 1 ? 1.f : v.y;
+    v.z = e == 2 ? 1.f : v.z;
+    v.w = e == 3 ? 1.f : v.w;
   }
 }
 
-__device__ __forceinline__ void store_tile(float* M, const float* S, int N,
-                                           int r0, int c0) {
-  for (int e = threadIdx.x; e < BK * BK; e += NT) {
-    const int i = e >> 6, j = e & 63;
-    M[(size_t)(r0 + i) * N + c0 + j] = S[i * LD + j];
+// dst[j][i] = src[i][j] for a 64x64 tile (dst in shared memory, row
+// stride LDT; src row-major with stride ld_src, shared or device memory:
+// it may be the `lu` buffer, which this kernel writes, so no __restrict__).
+__device__ __forceinline__ void tile_regs(float v[DQ], const float* src,
+                                          size_t ld_src) {
+#pragma unroll
+  for (int t = 0; t < DQ; ++t) {
+    const int e = threadIdx.x + t * NT;
+    v[t] = src[(e >> 6) * ld_src + (e & 63)];
   }
 }
+__device__ __forceinline__ void store_tile_t(float* dst, const float v[DQ]) {
+#pragma unroll
+  for (int t = 0; t < DQ; ++t) {
+    const int e = threadIdx.x + t * NT;
+    dst[(e & 63) * LDT + (e >> 6)] = v[t];
+  }
+}
+__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
+                                            size_t ld_src) {
+  float v[DQ];                          // all loads in flight, then stores
+  tile_regs(v, src, ld_src);
+  store_tile_t(dst, v);
+}
 
-// acc[r][c] = sum_k A[ty + 16 r][k] * B[k][tx + 16 c] for this thread's
-// 4x4 outputs of a 64x64 tile product, both operands in shared memory.
-__device__ __forceinline__ void tile_mm(const float* A, const float* B,
-                                        float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// acc[i][j] = sum_k Xt[k][ty4*4 + i] * Y[k][tx4*4 + j]: this thread's 4x4
+// outputs of a 64x64 product whose left operand is kept k-major (Xt, row
+// stride LDT) and right operand row-major (Y, row stride ldy); two
+// 128-bit shared loads per 16 FMAs.
+__device__ __forceinline__ void tile_mm_4x4(const float* Xt, const float* Y,
+                                            int ldy, float acc[4][4]) {
+  const int tx4 = threadIdx.x & 15, ty4 = threadIdx.x >> 4;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 8
   for (int k = 0; k < BK; ++k) {
-    float a[4], b[4];
+    const float4 a = *reinterpret_cast<const float4*>(Xt + k * LDT + ty4 * 4);
+    const float4 b = *reinterpret_cast<const float4*>(Y + k * ldy + tx4 * 4);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty + 16 * r) * LD + k];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = B[k * LD + tx + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// M[tile] = acc (sub=false) or M[tile] -= acc (sub=true).
-__device__ __forceinline__ void store_acc(float* M, int N, int r0, int c0,
-                                          float acc[4][4], bool sub) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// v[q] for a q known only at run time, without local memory
+__device__ __forceinline__ float pick(const float v[DQ], int q) {
+  float x = v[0];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const size_t o = (size_t)(r0 + ty + 16 * r) * N + c0 + tx + 16 * c;
-      M[o] = sub ? M[o] - acc[r][c] : acc[r][c];
-    }
+  for (int t = 1; t < DQ; ++t)
+    if (t == q) x = v[t];
+  return x;
+}
+
+__device__ __forceinline__ float4 row4(const float acc[4][4], int i) {
+  return make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -117,112 +231,334 @@ __device__ __forceinline__ float warp_sum(float s) {
 
 // K1: one CTA factors one lane.  A: [B, n, n]; lu: [B, N, N] (padded with
 // identity, factored in place); linv, uinv: [B, K, BK, BK].
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 blocklu_factor_kernel(const float* __restrict__ A, int n, int N, float* lu,
                       float* __restrict__ linv, float* __restrict__ uinv) {
-  extern __shared__ float smem[];
-  float* D = smem;                  // diagonal block, then colp tile
-  float* Li = smem + BK * LD;
-  float* Ui = smem + 2 * BK * LD;
-  float* T = smem + 3 * BK * LD;    // staging tile
-  __shared__ float colm[BK];        // multipliers of the current column
-  __shared__ float dfl[BK];         // floored diagonal of U
+  extern __shared__ __align__(16) float smem[];
+  float* RP = smem;                     // row panel slab [64][SW]
+  float* A22 = RP + RP_FLOATS;          // A22 chunk [64][CW]
+  float* D = A22;                       // factored diagonal block and
+  float* S = A22 + TILE;                // U[i][j] / d_i (both alias A22)
+  float* Ui = A22 + A22_FLOATS;         // upper inverse [64][LDT]
+  float* T = Ui + TILE;                 // Linv^T, A_r,k^T, then L_r,k^T
+  __shared__ __align__(16) float pubA[2][4 * BK];   // published rows and
+  __shared__ __align__(16) float pubB[2][4 * BK];   // columns of a group
+  __shared__ float dfl[BK];             // floored diagonal of U
 
   const int tid = threadIdx.x;
+  const int tx4 = tid & 15, ty4 = tid >> 4;     // 4x4 products
+  const int tx = tid & 31, ty = tid >> 5;       // 8x8 trailing products
+  const int g = tid >> 6, cc = tid & 63;        // diagonal block: rows
+                                                // g + 4q of column cc
   const int K = N / BK;
   const float* Ab = A + (size_t)blockIdx.x * n * n;
   float* L = lu + (size_t)blockIdx.x * N * N;
   float* LI = linv + (size_t)blockIdx.x * K * BK * BK;
   float* UI = uinv + (size_t)blockIdx.x * K * BK * BK;
 
-  // pad: identity on the rows/columns beyond n
-  for (size_t e = tid; e < (size_t)N * N; e += NT) {
-    const int i = (int)(e / N), j = (int)(e % N);
-    L[e] = (i < n && j < n) ? Ab[(size_t)i * n + j] : (i == j ? 1.f : 0.f);
-  }
-  __syncthreads();
-
   for (int k = 0; k < K; ++k) {
     const int kb = k * BK;
-    load_tile(D, L, N, kb, kb);
+    // Panel 0 reads A itself (padded with identity on the fly) and writes
+    // every element of lu; later panels read lu.  Their cp.async reads
+    // (which bypass L1) must see the previous panel's stores by every
+    // thread: each fences its own to the device before the barrier.
+    __threadfence();
+    __syncthreads();
+    // (1) unblocked no-pivot LU of the diagonal block, held in registers
+    //     (thread (g, cc) holds rows g + 4q of column cc), four steps per
+    //     group: the group's 4 rows and 4 columns are published through
+    //     shared memory (double-buffered); every thread forms the 4x4
+    //     block's factors and its rows' 4 multipliers and applies the 4
+    //     steps to its values in the same order as one step at a time.
+    //     One barrier per 4 steps.
+    float d[DQ];
+#pragma unroll
+    for (int q = 0; q < DQ; ++q)
+      d[q] = k == 0 ? a_pad(Ab, n, g + 4 * q, cc)
+                    : L[(size_t)(kb + g + 4 * q) * N + kb + cc];
+    // the first row-panel slab comes in while the diagonal block factors
+    if (kb + BK < N) {
+      if (k == 0)
+        copy_rows_async_a(RP, SW, Ab, n, 0, BK, min(SW, N - BK));
+      else
+        copy_rows_async(RP, SW, L + (size_t)kb * N + kb + BK, N,
+                        min(SW, N - kb - BK));
+    }
+    for (int j = 0; j < BK; j += 4) {
+      const int b = (j >> 2) & 1;
+      float* R = pubA[b];               // [4][BK]: rows j..j+3
+      float* C = pubB[b];               // [BK][4]: columns j..j+3
+      R[g * BK + cc] = pick(d, j >> 2);
+      if (cc >= j && cc < j + 4) {
+#pragma unroll
+        for (int q = 0; q < DQ; ++q) C[(g + 4 * q) * 4 + cc - j] = d[q];
+      }
+      __syncthreads();
+      // every thread forms the 4x4 block's L\U (no second barrier)
+      float m[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) m[a][t] = R[a * BK + j + t];
+      float rp[4];                      // multipliers: x * (1 / pivot)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = floor_pivot(m[t][t]);
+        rp[t] = 1.f / p;
+#pragma unroll
+        for (int a = t + 1; a < 4; ++a) {
+          m[a][t] = m[a][t] * rp[t];
+#pragma unroll
+          for (int u = t + 1; u < 4; ++u)
+            m[a][u] = fmaf(-m[a][t], m[t][u], m[a][u]);
+        }
+      }
+      // rows j..j+3 of U at this thread's column
+      const float u0 = R[cc];
+      const float u1 = fmaf(-m[1][0], u0, R[BK + cc]);
+      const float u2 = fmaf(-m[2][1], u1, fmaf(-m[2][0], u0, R[2 * BK + cc]));
+      const float u3 = fmaf(-m[3][2], u2, fmaf(-m[3][1], u1,
+                                               fmaf(-m[3][0], u0,
+                                                    R[3 * BK + cc])));
+      const int t = cc - j;
+      float4 cr[DQ];
+#pragma unroll
+      for (int q = 0; q < DQ; ++q)
+        cr[q] = *reinterpret_cast<const float4*>(C + (g + 4 * q) * 4);
+#pragma unroll
+      for (int q = 0; q < DQ; ++q) {
+        const int r = g + 4 * q;
+        const int a = r - j;            // row inside the 4x4 block
+        // this row's 4 multipliers, in step order
+        const float c0 = cr[q].x * rp[0];
+        const float c1 = fmaf(-c0, m[0][1], cr[q].y) * rp[1];
+        const float c2 = fmaf(-c1, m[1][2], fmaf(-c0, m[0][2], cr[q].z))
+                         * rp[2];
+        const float c3 = fmaf(-c2, m[2][3], fmaf(-c1, m[1][3],
+                                                 fmaf(-c0, m[0][3], cr[q].w)))
+                         * rp[3];
+        const float below = fmaf(-c3, u3, fmaf(-c2, u2,
+                            fmaf(-c1, u1, fmaf(-c0, u0, d[q]))));
+        const float uin = a == 0 ? u0 : a == 1 ? u1 : a == 2 ? u2 : u3;
+        const float ct = t == 0 ? c0 : t == 1 ? c1 : t == 2 ? c2 : c3;
+        // inside the 4x4 block, at column j+t: L left of the diagonal
+        // (the same chain as the rows below), the pivot on it, U right
+        const float blk = t < a ? ct : (t == a ? floor_pivot(uin) : uin);
+        // selects, not branches: t differs along the warp
+        const float right = r > j + 3 ? below : (r >= j ? uin : d[q]);
+        const float grp = r > j + 3 ? ct : (r >= j ? blk : d[q]);
+        d[q] = t >= 4 ? right : (t >= 0 ? grp : d[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) {
+      const int r = g + 4 * q;
+      D[r * LDT + cc] = d[q];
+      L[(size_t)(kb + r) * N + kb + cc] = d[q];
+    }
+    __syncthreads();
+    if (tid < BK) {
+      const float v = D[tid * LDT + tid];
+      dfl[tid] = fabsf(v) < PIV_FLOOR ? PIV_FLOOR : v;
+    }
     __syncthreads();
 
-    // (1) unblocked no-pivot LU of the diagonal block
-    for (int j = 0; j < BK; ++j) {
-      const float piv = floor_pivot(D[j * LD + j]);
-      if (tid < BK) colm[tid] = tid > j ? D[tid * LD + j] / piv : 0.f;
+    // (2) Li = inverse of the unit-lower triangle (forward) and Ui =
+    //     inverse of the upper triangle (backward), in registers as in
+    //     (1), four steps of each per barrier: the 4 rows of each group
+    //     are published, every thread finishes them at its column and
+    //     applies the 4 steps to its own rows in step order.
+    float yl[DQ], yu[DQ];
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) {
+      const int r = g + 4 * q;
+      S[r * LDT + cc] = d[q] / dfl[r];
+      yl[q] = r == cc ? 1.f : 0.f;
+      yu[q] = r == cc ? 1.f / dfl[r] : 0.f;
+    }
+    __syncthreads();
+    for (int jl = 0; jl < BK; jl += 4) {
+      const int b = (jl >> 2) & 1;
+      const int j0 = BK - 4 - jl;       // Ui's group: rows j0..j0+3,
+      float* RL = pubA[b];              // taken from j0+3 down
+      float* RU = pubB[b];
+      RL[g * BK + cc] = pick(yl, jl >> 2);
+      RU[g * BK + cc] = pick(yu, j0 >> 2);
       __syncthreads();
-      for (int e = tid; e < BK * BK; e += NT) {
-        const int i = e >> 6, c = e & 63;
-        if (i > j) {
-          if (c > j) D[i * LD + c] -= colm[i] * D[j * LD + c];
-          else if (c == j) D[i * LD + j] = colm[i];
-        } else if (i == j && c == j) {
-          D[j * LD + j] = piv;
+      const float* dj = D + jl * LDT + jl;    // D[jl + a][jl + t]
+      const float y0 = RL[cc];
+      const float y1 = fmaf(-dj[LDT], y0, RL[BK + cc]);
+      const float y2 = fmaf(-dj[2 * LDT + 1], y1,
+                            fmaf(-dj[2 * LDT], y0, RL[2 * BK + cc]));
+      const float y3 = fmaf(-dj[3 * LDT + 2], y2,
+                            fmaf(-dj[3 * LDT + 1], y1,
+                                 fmaf(-dj[3 * LDT], y0, RL[3 * BK + cc])));
+      const float* sj = S + j0 * LDT + j0;    // S[j0 + a][j0 + t]
+      const float v0 = RU[3 * BK + cc];
+      const float v1 = fmaf(-sj[2 * LDT + 3], v0, RU[2 * BK + cc]);
+      const float v2 = fmaf(-sj[LDT + 2], v1,
+                            fmaf(-sj[LDT + 3], v0, RU[BK + cc]));
+      const float v3 = fmaf(-sj[1], v2,
+                            fmaf(-sj[2], v1, fmaf(-sj[3], v0, RU[cc])));
+      float4 cl[DQ], cu[DQ];
+#pragma unroll
+      for (int q = 0; q < DQ; ++q) {
+        cl[q] = *reinterpret_cast<const float4*>(D + (g + 4 * q) * LDT + jl);
+        cu[q] = *reinterpret_cast<const float4*>(S + (g + 4 * q) * LDT + j0);
+      }
+#pragma unroll
+      for (int q = 0; q < DQ; ++q) {
+        const int r = g + 4 * q;
+        float x = yl[q];
+        x = r > jl ? fmaf(-cl[q].x, y0, x) : x;
+        x = r > jl + 1 ? fmaf(-cl[q].y, y1, x) : x;
+        x = r > jl + 2 ? fmaf(-cl[q].z, y2, x) : x;
+        yl[q] = r > jl + 3 ? fmaf(-cl[q].w, y3, x) : x;
+        float z = yu[q];
+        z = r < j0 + 3 ? fmaf(-cu[q].w, v0, z) : z;
+        z = r < j0 + 2 ? fmaf(-cu[q].z, v1, z) : z;
+        z = r < j0 + 1 ? fmaf(-cu[q].y, v2, z) : z;
+        yu[q] = r < j0 ? fmaf(-cu[q].x, v3, z) : z;
+      }
+    }
+
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) {
+      const int r = g + 4 * q;
+      LI[(size_t)k * BK * BK + r * BK + cc] = yl[q];
+      UI[(size_t)k * BK * BK + r * BK + cc] = yu[q];
+      Ui[r * LDT + cc] = yu[q];
+      T[cc * LDT + r] = yl[q];           // Linv^T for the row panel
+    }
+    if (kb + BK >= N) break;
+    __syncthreads();
+
+    for (int c_lo = kb + BK; c_lo < N; c_lo += SW) {
+      const int w = min(SW, N - c_lo);
+      // (3) row panel slab: U_k,slab = Li @ A_k,slab, kept in RP
+      if (c_lo > kb + BK) {
+        load_tile_t(T, LI + (size_t)k * BK * BK, BK);
+        if (k == 0)
+          copy_rows_async_a(RP, SW, Ab, n, 0, c_lo, w);
+        else
+          copy_rows_async(RP, SW, L + (size_t)kb * N + c_lo, N, w);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int t = 0; t < w; t += BK) {
+        float acc[4][4];
+        tile_mm_4x4(T, RP + t, SW, acc);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty4 * 4 + i, c = t + tx4 * 4;
+          *reinterpret_cast<float4*>(RP + r * SW + c) = row4(acc, i);
+          *reinterpret_cast<float4*>(L + (size_t)(kb + r) * N + c_lo + c) =
+              row4(acc, i);
         }
       }
       __syncthreads();
-    }
 
-    // (2) Li = inverse of the unit-lower triangle (forward), Ui = inverse
-    //     of the upper triangle (backward), one barrier per step for both
-    for (int e = tid; e < BK * BK; e += NT) {
-      const int i = e >> 6, c = e & 63;
-      float d = D[i * LD + i];
-      d = fabsf(d) < PIV_FLOOR ? PIV_FLOOR : d;
-      Li[i * LD + c] = (i == c) ? 1.f : 0.f;
-      Ui[i * LD + c] = (i == c) ? 1.f / d : 0.f;
-    }
-    if (tid < BK) {
-      const float d = D[tid * LD + tid];
-      dfl[tid] = fabsf(d) < PIV_FLOOR ? PIV_FLOOR : d;
-    }
-    __syncthreads();
-    for (int s = 0; s < BK; ++s) {
-      const int jl = s, ju = BK - 1 - s;
-      for (int e = tid; e < BK * BK; e += NT) {
-        const int i = e >> 6, c = e & 63;
-        if (i > jl) Li[i * LD + c] -= D[i * LD + jl] * Li[jl * LD + c];
-        if (i < ju)
-          Ui[i * LD + c] -= (D[i * LD + ju] / dfl[i]) * Ui[ju * LD + c];
-      }
-      __syncthreads();
-    }
-
-    store_tile(L, D, N, kb, kb);
-    for (int e = tid; e < BK * BK; e += NT) {
-      const int i = e >> 6, c = e & 63;
-      LI[(size_t)k * BK * BK + e] = Li[i * LD + c];
-      UI[(size_t)k * BK * BK + e] = Ui[i * LD + c];
-    }
-    __syncthreads();
-
-    if (kb + BK < N) {
-      float acc[4][4];
-      // (3) row panel: U_k* = Li @ A_k*
-      for (int c0 = kb + BK; c0 < N; c0 += BK) {
-        load_tile(T, L, N, kb, c0);
-        __syncthreads();
-        tile_mm(Li, T, acc);
-        store_acc(L, N, kb, c0, acc, false);
-        __syncthreads();
-      }
-      // (4) column panel: L_*k = A_*k @ Ui
+      // (4)+(5) walk the trailing rows by 64-row blocks
       for (int r0 = kb + BK; r0 < N; r0 += BK) {
-        load_tile(T, L, N, r0, kb);
+        float* Arow = L + (size_t)r0 * N;
+        // A_r,k^T (L_r,k^T after slab 0); its loads go out before the
+        // first A22 chunk's copy, which is in flight while the L tile forms
+        float v[DQ];
+        if (k == 0 && c_lo == kb + BK) {
+#pragma unroll
+          for (int t = 0; t < DQ; ++t) {
+            const int e = tid + t * NT;
+            v[t] = a_pad(Ab, n, r0 + (e >> 6), e & 63);
+          }
+        } else {
+          tile_regs(v, Arow + kb, N);
+        }
+        if (k == 0)
+          copy_rows_async_a(A22, CW, Ab, n, r0, c_lo, min(CW, w));
+        else
+          copy_rows_async(A22, CW, Arow + c_lo, N, min(CW, w));
+        store_tile_t(T, v);
         __syncthreads();
-        tile_mm(T, Ui, acc);
-        store_acc(L, N, r0, kb, acc, false);
-        __syncthreads();
-      }
-      // (5) trailing update: A22 -= L_*k @ U_k*
-      for (int r0 = kb + BK; r0 < N; r0 += BK) {
-        load_tile(D, L, N, r0, kb);
-        for (int c0 = kb + BK; c0 < N; c0 += BK) {
-          load_tile(T, L, N, kb, c0);
+        if (c_lo == kb + BK) {
+          // L_r,k = A_r,k @ Ui: stored to lu and kept k-major in T
+          float acc[4][4];
+          tile_mm_4x4(T, Ui, LDT, acc);
           __syncthreads();
-          tile_mm(D, T, acc);
-          store_acc(L, N, r0, c0, acc, true);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<float4*>(Arow + (size_t)(ty4 * 4 + i) * N +
+                                       kb + tx4 * 4) = row4(acc, i);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<float4*>(T + (tx4 * 4 + j) * LDT + ty4 * 4) =
+                make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+          __syncthreads();
+        }
+        for (int c = 0; c < w; c += CW) {
+          const int cw = min(CW, w - c);
+          if (c > 0) {
+            if (k == 0)
+              copy_rows_async_a(A22, CW, Ab, n, r0, c_lo + c, cw);
+            else
+              copy_rows_async(A22, CW, Arow + c_lo + c, N, cw);
+          }
+          // this thread's 8 rows and 2 x 4 columns of the 64 x cw chunk;
+          // a thread whose columns lie beyond cw reads column 0 and
+          // stores nothing
+          const bool v0 = tx * 4 < cw, v1 = CW / 2 + tx * 4 < cw;
+          const int cr0 = v0 ? c + tx * 4 : 0;
+          const int cr1 = v1 ? c + CW / 2 + tx * 4 : 0;
+          float acc[8][8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+          for (int kk = 0; kk < BK; ++kk) {
+            const float4 a0 =
+                *reinterpret_cast<const float4*>(T + kk * LDT + ty * 8);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(T + kk * LDT + ty * 8 + 4);
+            const float4 b0 =
+                *reinterpret_cast<const float4*>(RP + kk * SW + cr0);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(RP + kk * SW + cr1);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                                 a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                 b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+          cp_async_wait_all();
+          __syncthreads();
+          // epilogue: A22 - L_r,k U_k,chunk, 128-bit stores
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = ty * 8 + i;
+            float* g = Arow + (size_t)r * N + c_lo + c;
+            if (v0) {
+              float4 v = *reinterpret_cast<const float4*>(A22 + r * CW +
+                                                          tx * 4);
+              if (k == 0) pad_ones(v, r0 + r, c_lo + c + tx * 4, n);
+              v.x -= acc[i][0]; v.y -= acc[i][1];
+              v.z -= acc[i][2]; v.w -= acc[i][3];
+              *reinterpret_cast<float4*>(g + tx * 4) = v;
+            }
+            if (v1) {
+              float4 v = *reinterpret_cast<const float4*>(
+                  A22 + r * CW + CW / 2 + tx * 4);
+              if (k == 0)
+                pad_ones(v, r0 + r, c_lo + c + CW / 2 + tx * 4, n);
+              v.x -= acc[i][4]; v.y -= acc[i][5];
+              v.z -= acc[i][6]; v.w -= acc[i][7];
+              *reinterpret_cast<float4*>(g + CW / 2 + tx * 4) = v;
+            }
+          }
           __syncthreads();
         }
       }

@@ -72,7 +72,7 @@ class NeufeldParams(NamedTuple):
 class NeufeldH2:
     """H2 rotational cooling table (22 log10 T points)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         d = _load("neufeld_h2", device)
         self.logT = d["log10_T_s"]
         self.L0 = d["log10_L0"]
@@ -100,7 +100,7 @@ class NeufeldH2:
 
 
 class NeufeldH2O:
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         self.d = _load("neufeld_h2o", device)
         self.ortho, self.para = 0.75, 0.25
 
@@ -152,7 +152,7 @@ class NeufeldH2O:
 
 
 class NeufeldCO:
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         self.d = _load("neufeld_co", device)
 
     def params(self, T, log10N):
@@ -195,7 +195,7 @@ class NeufeldCO:
 class VisserCOShielding:
     """Visser et al. 2009 12CO photodissociation shielding factor."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         d = _load("visser_co_shielding", device)
         self.logN_H2 = d["logN_H2"]
         self.logN_CO = d["logN_12CO"]
@@ -217,7 +217,7 @@ class IonCoolingLUT:
 
     REFINE = 6
 
-    def __init__(self, path, device="cpu"):
+    def __init__(self, path, device):
         raw = np.fromfile(path, dtype="<f8")
         ndim = int(raw[0])
         dims = raw[1:1 + ndim].astype(int)

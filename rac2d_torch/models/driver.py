@@ -73,7 +73,7 @@ class DiskModel:
     """Holds the prepared state on one device; run_mc drives the
     Lucy-iterated MC passes."""
 
-    def __init__(self, cfg: DiskConfig, device="cpu"):
+    def __init__(self, cfg: DiskConfig, device="cuda"):
         if isinstance(device, (list, tuple)):
             if len(device) > 1:
                 raise NotImplementedError(
@@ -81,6 +81,9 @@ class DiskModel:
             device = device[0]
         self.cfg = cfg
         self.device = torch.device(device)
+        # a device that cannot hold tensors (the default "cuda" on a
+        # machine without one) fails here, with torch's own error
+        torch.empty(0, device=self.device)
         self.log = []
         # one record per MC pass: wall time, packets, walk chunks,
         # refills, kernel launches, fates and the cells it read

@@ -184,6 +184,8 @@ class BDFResult(NamedTuple):
     # per-lane tolerance-relaxation level reached by the retry ladder
     # (0 = solved at the requested tolerances)
     retry_level: torch.Tensor | None = None
+    # batched BDF rounds the pool driver ran, over all advance calls
+    n_rounds: int | None = None
 
 
 def log_output_times(t_start, t_end, ratio=1.1, n_max=None):
@@ -500,8 +502,10 @@ def make_advance(f_b: Callable, jac_b: Callable,
             st = st._replace(fail=st.fail | ((irec < n_out)
                                              & (since > max_steps_per_interval)))
             k += 1
+        advance.rounds += k
         return ContState(st, irec, since, ts, ys)
 
+    advance.rounds = 0        # rounds run over all calls
     return advance
 
 
@@ -712,4 +716,4 @@ def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,
         t_final=t(res["t_final"]), fail=t(res["fail"]),
         n_steps=t(res["n_steps"]), n_feval=t(res["n_feval"]),
         n_jeval=t(res["n_jeval"]), n_lu=t(res["n_lu"]),
-        retry_level=t(res["level"]))
+        retry_level=t(res["level"]), n_rounds=advance.rounds)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 BK = 64          # panel size
@@ -125,6 +126,30 @@ def block_lu(A) -> BlockLU:
             lu[:, kb + BK:, kb + BK:] -= torch.matmul(colp, rowp)
     return BlockLU(lu=lu, linv=torch.stack(linvs, 1),
                    uinv=torch.stack(uinvs, 1))
+
+
+# (lane, j, diagonal value) of the zeroed rows/columns of
+# floored_pivot_matrices
+FLOOR_CASES = [(0, 0, -1e-25), (0, 64, 0.0), (0, 129, 3e-21),
+               (1, 63, -3e-21), (1, 100, -0.0), (2, 64, 1e-30)]
+
+
+def floored_pivot_matrices(device, seed=5, n=130):
+    """The pivot-floor check case of the kernel tests and chip_smoke.py:
+    three f32 2 I + N(0, 1/n) matrices in which the rows and columns of
+    FLOOR_CASES are zero but for a diagonal entry below PIV_FLOOR, which
+    no elimination step then changes, so the factor must hold it floored
+    to +-PIV_FLOOR with its sign (0 and -0 to +PIV_FLOOR).  Returns A and
+    {(lane, j): the floored pivot}."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((3, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+    want = {}
+    for lane, j, v in FLOOR_CASES:
+        A[lane, j, :] = 0.0
+        A[lane, :, j] = 0.0
+        A[lane, j, j] = v
+        want[(lane, j)] = -PIV_FLOOR if v < 0 else PIV_FLOOR
+    return torch.as_tensor(A, dtype=torch.float32, device=device), want
 
 
 def _mv(M, v):

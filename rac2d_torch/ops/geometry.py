@@ -128,7 +128,7 @@ class GridIndex(NamedTuple):
     zc_pack: torch.Tensor = None      # [n_col, 2*max_nz + 1] f32
 
 
-def build_grid_index(grid, device="cpu") -> GridIndex:
+def build_grid_index(grid, device) -> GridIndex:
     """Host-side: per-column sorted z-edge ladders + cell map."""
     ncol = grid.n_columns
     # the packed path stores column/cell ids as f32, exact below 2**24

@@ -90,7 +90,7 @@ class McTallies(NamedTuple):
                                 # the lam >= mrw_lam_min flux window
 
     @staticmethod
-    def zeros(n_cells, nlam, n_dust, n_mu, n_r=8, n_phi=8, device="cpu"):
+    def zeros(n_cells, nlam, n_dust, n_mu, n_r=8, n_phi=8, *, device):
         def z(*shape):
             return torch.zeros(shape, dtype=F, device=device)
         return McTallies(z(n_cells, nlam), z(n_cells, nlam), z(n_cells, 3),

@@ -72,8 +72,8 @@ class Incidence(NamedTuple):
     mj_flat: torch.Tensor
 
 
-def build_incidence(net: ChemNet, h2_form_use_moeq: bool = False,
-                    device="cpu") -> Incidence:
+def build_incidence(net: ChemNet, h2_form_use_moeq: bool,
+                    device) -> Incidence:
     nR = net.n_reactions
     nS = net.n_species
     cat = np.array([_CAT_OF_ITYPE.get(int(t), CAT_NONE) for t in net.itype],

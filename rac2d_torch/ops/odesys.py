@@ -28,7 +28,7 @@ class ChemicalODE:
     device."""
 
     def __init__(self, net: ChemNet, h2_form_use_moeq: bool = False,
-                 diff2des: float = 0.5, thermal=None, device="cpu"):
+                 diff2des: float = 0.5, thermal=None, device="cuda"):
         self.device = torch.device(device)
         if thermal is not None and thermal.device != self.device:
             raise ValueError(f"thermal balance on {thermal.device}, "
@@ -221,7 +221,7 @@ class ChemicalODE:
 
 
 def tolerance_ladder(net: ChemNet, level: int, rtol0: float, atol0: float,
-                     ratioDust2HnucNum: float, device="cpu"):
+                     ratioDust2HnucNum: float, device="cuda"):
     """Per-equation RTOL/ATOL [NEQ] tensors, relaxation level 1..4+.
 
     Reproduces the reference's retry ladder ``chem_set_solver_flags_alt``

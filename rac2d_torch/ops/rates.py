@@ -56,7 +56,7 @@ class CellEnv(NamedTuple):
     SitesPerGrain: torch.Tensor
 
     @staticmethod
-    def default(device="cpu", **kw):
+    def default(device, **kw):
         """A neutral single-cell environment (0-d fields); override fields
         via kw.  Stack cells with ``utils.tree.stack``."""
         d = dict(
@@ -118,7 +118,7 @@ def _exp(x):
     return torch.exp(torch.clamp(x, _EXP_LO, c.max_exp))
 
 
-def build_rate_tables(net: ChemNet, device="cpu") -> RateTables:
+def build_rate_tables(net: ChemNet, device) -> RateTables:
     nR = net.n_reactions
     itype = net.itype
     is_two_body_gas = (net.n_reac == 2) & (itype < 60)

@@ -87,7 +87,7 @@ class ThermalEnv(NamedTuple):
     #                                    AU2cm^3 in a range-safe order)
 
     @staticmethod
-    def default(device="cpu", **kw):
+    def default(device, **kw):
         d = dict(
             PAH_abundance=c.PAH_abundance_0, MeanMolWeight=1.4,
             alpha_viscosity=0.0, omega_Kepler=0.0, velo_width_turb=1e5,
@@ -165,7 +165,7 @@ class ThermalBalance:
     device."""
 
     def __init__(self, net: ChemNet, config: HcConfig = HcConfig(),
-                 device="cpu", data_dir: str | None = None):
+                 device="cuda", data_dir: str | None = None):
         if config.allow_gas_dust_en_exch or config.tdust_iter_tandem \
                 or config.dust_gas_linear_couple:
             raise NotImplementedError(

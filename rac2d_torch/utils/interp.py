@@ -69,6 +69,6 @@ def trilinear(x, y, z, xg, yg, zg, table):
     return out
 
 
-def logspace(a, b, n, device="cpu"):
+def logspace(a, b, n, device):
     """log10-spaced float64 grid from 10^a to 10^b inclusive."""
     return torch.logspace(a, b, n, dtype=torch.float64, device=device)

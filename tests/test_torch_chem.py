@@ -41,8 +41,9 @@ def both():
     y0 = umist.load_initial_abundances(net, defaults.INIT_ABUNDANCES)
     tb = thermal.ThermalBalance(net)
     ode = odesys.ChemicalODE(net, thermal=tb)
-    t_tb = convert.thermal_balance(tb)
-    t_ode = t_odesys.ChemicalODE(convert.chem_net(net), thermal=t_tb)
+    t_tb = convert.thermal_balance(tb, "cpu")
+    t_ode = t_odesys.ChemicalODE(convert.chem_net(net), thermal=t_tb,
+                                 device="cpu")
 
     envs = jax.tree.map(lambda *a: jnp.stack(a),
                         *[_env_pairs(p)[1] for p in CELLS])
@@ -51,8 +52,8 @@ def both():
     T = np.array([p["T"] for p in CELLS])
     return dict(net=net, y0=y0, tb=tb, ode=ode, t_tb=t_tb, t_ode=t_ode,
                 envs=envs, tenvs=tenvs, T=T,
-                t_envs=convert.cell_env(envs),
-                t_tenvs=convert.thermal_env(tenvs))
+                t_envs=convert.cell_env(envs, "cpu"),
+                t_tenvs=convert.thermal_env(tenvs, "cpu"))
 
 
 def _tenv_of(cls, p):
@@ -119,8 +120,8 @@ def test_rate_tables_convert_equal_built(both):
     from rac2d_torch import convert
     from rac2d_torch.ops import network as tn, rates as tr
     for built, conv in (
-            (both["t_ode"].tab, convert.rate_tables(both["ode"].tab)),
-            (both["t_ode"].inc, convert.incidence(both["ode"].inc))):
+            (both["t_ode"].tab, convert.rate_tables(both["ode"].tab, "cpu")),
+            (both["t_ode"].inc, convert.incidence(both["ode"].inc, "cpu"))):
         for f in type(built)._fields:
             a, b = getattr(built, f), getattr(conv, f)
             if isinstance(a, int):
@@ -192,7 +193,8 @@ def test_thermal_rejects_unported_modes(both):
     for kw in ("tdust_iter_tandem", "dust_gas_linear_couple",
                "allow_gas_dust_en_exch"):
         with pytest.raises(NotImplementedError):
-            ThermalBalance(both["t_tb"].net, HcConfig(**{kw: True}))
+            ThermalBalance(both["t_tb"].net, HcConfig(**{kw: True}),
+                           device="cpu")
 
 
 def test_coupled_f_and_jac_match_jax(both):

@@ -38,7 +38,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _matrices(B, n, seed, device="cpu"):
+def _matrices(B, n, seed, device):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((B, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
     b = rng.standard_normal((B, n))
@@ -54,7 +54,7 @@ def _rel(a, b):
 
 
 def test_wrappers_run_plain_version_on_cpu():
-    A, b = _matrices(2, 90, 3)
+    A, b = _matrices(2, 90, 3, "cpu")
     kernels.reset_launches()
     fac = kernels.block_lu_factor(A)
     x = kernels.block_lu_solve(fac, b)
@@ -82,9 +82,10 @@ def test_build_dir_is_inside_the_checkout():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 100, 485])
-def test_kernels_match_plain_on_card(cuda_device, n):
-    A, b = _matrices(8, n, n, cuda_device)
+@pytest.mark.parametrize("B", [1, 3, 256])
+@pytest.mark.parametrize("n", [1, 64, 65, 100, 130, 485, 512, 600])
+def test_kernels_match_plain_on_card(cuda_device, n, B):
+    A, b = _matrices(B, n, n, cuda_device)
     kernels.reset_launches()
     fac = kernels.block_lu_factor(A)
     x = kernels.block_lu_solve(fac, b)
@@ -96,6 +97,29 @@ def test_kernels_match_plain_on_card(cuda_device, n):
     for name in ("lu", "linv", "uinv"):
         assert _rel(getattr(fac, name), getattr(ref, name)) <= 1e-4, name
     assert _rel(x, xr) <= 1e-4
+
+
+def test_pivot_floor_keeps_sign_on_cpu():
+    A, want = blocklu.floored_pivot_matrices("cpu")
+    fac = kernels.block_lu_factor(A)
+    assert len(want) == len(blocklu.FLOOR_CASES)
+    for (lane, j), v in want.items():
+        assert float(fac.lu[lane, j, j]) == float(np.float32(v))
+
+
+@pytest.mark.cuda
+def test_factor_floors_pivots_like_plain_on_card(cuda_device):
+    A, want = blocklu.floored_pivot_matrices(cuda_device)
+    b = torch.ones(A.shape[:2], dtype=torch.float32, device=cuda_device)
+    fac = kernels.block_lu_factor(A)
+    x = kernels.block_lu_solve(fac, b)
+    torch.cuda.synchronize()
+    ref = blocklu.block_lu(A)
+    for (lane, j), v in want.items():
+        assert float(fac.lu[lane, j, j]) == float(np.float32(v))
+    for name in ("lu", "linv", "uinv"):
+        assert _rel(getattr(fac, name), getattr(ref, name)) <= 1e-4, name
+    assert _rel(x, blocklu.block_lu_solve(ref, b)) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -166,8 +190,8 @@ def test_mc_wrappers_run_plain_version_on_cpu():
     m, model, pk = _mc_setup("cpu", n_packets=256)
     ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
     nlam = len(m.tab.lam)
-    tk = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5)
-    tp = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5)
+    tk = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5, device="cpu")
+    tp = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5, device="cpu")
     pk_k, pk_p = pk.clone(), pk.clone()
     kernels.reset_launches()
     na = kernels.mc_walk(ws, pk_k, tk, 8)

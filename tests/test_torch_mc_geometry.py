@@ -72,7 +72,7 @@ def test_locate_matches_jax_on_both_paths(dtype):
     """f32 points take the packed walk path, f64 points the full one."""
     g = _grid()
     jgi = jgeo.build_grid_index(g)
-    tgi = tgeo.build_grid_index(g)
+    tgi = tgeo.build_grid_index(g, "cpu")
     rng = np.random.default_rng(2)
     n = 20000
     r = rng.uniform(0.5, 55.0, n)
@@ -91,7 +91,7 @@ def test_locate_searchsorted_fallback_matches_jax():
     """A hand-built index without the radial LUT (the test fixtures')."""
     g = _grid()
     jgi = jgeo.build_grid_index(g)._replace(r_lut=None, r_lut_pack=None)
-    tgi = convert.grid_index(jgi)
+    tgi = convert.grid_index(jgi, "cpu")
     rng = np.random.default_rng(3)
     rsq = rng.uniform(0.5, 55.0, 5000) ** 2
     za = rng.uniform(0.0, 55.0, 5000)

@@ -40,7 +40,8 @@ def disks():
     out = []
     for pkg in ("jax", "torch"):
         driver, cfg = disk_cfg(pkg)
-        m = driver.DiskModel(cfg)
+        m = driver.DiskModel(cfg) if pkg == "jax" \
+            else driver.DiskModel(cfg, device="cpu")
         m.prepare()
         out.append(m)
     return out
@@ -84,14 +85,14 @@ def test_reduce_fields_equals_jax(disks):
     jt = jmcrt.McTallies.zeros(n, nlam, 1, 5)._replace(
         flux=jnp.asarray(flux), en_gain=jnp.asarray(en_gain),
         dir_flux=jnp.asarray(dir_flux))
-    tt = convert.mc_tallies(jt)
+    tt = convert.mc_tallies(jt, "cpu")
     jc = jm.mc_cells()
     jf = jfields.reduce_fields(
         jm.tab, jc, jt, jm.vol, jm.r2av, jm.lumi_UV0, jm.lumi_Lya,
         jm.lumi_H2phd, jnp.asarray(jm.r_cells), jnp.asarray(jm.z_cells))
     tf = tfields.reduce_fields(
-        tm.tab, convert.mc_cells(jc), tt, tm.vol, tm.r2av, tm.lumi_UV0,
-        tm.lumi_Lya, tm.lumi_H2phd, torch.as_tensor(tm.r_cells),
+        tm.tab, convert.mc_cells(jc, "cpu"), tt, tm.vol, tm.r2av,
+        tm.lumi_UV0, tm.lumi_Lya, tm.lumi_H2phd, torch.as_tensor(tm.r_cells),
         torch.as_tensor(tm.z_cells))
     for f in tfields.RadiationFields._fields:
         a = np.asarray(getattr(jf, f), np.float64)
@@ -146,7 +147,7 @@ def test_thin_shell_tdust_on_the_port():
     gen = torch.Generator().manual_seed(3)
     pk = tmcrt.launch_packets(model, gen, torch.as_tensor(lam_pk),
                               torch.as_tensor(en_pk / en_scale), 0.0, maxw)
-    tall = tmcrt.McTallies.zeros(n, len(tab.lam), 1, 5)
+    tall = tmcrt.McTallies.zeros(n, len(tab.lam), 1, 5, device="cpu")
     pk, tall = tmcrt.mc_pass(model, pk, tall, use_mrw=False)
     assert (pk.status != tmcrt.ST_ACTIVE).all()
     tall = tall._replace(en_gain=tall.en_gain.double() * en_scale)

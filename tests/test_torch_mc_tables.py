@@ -55,7 +55,7 @@ def test_make_grid_and_grid_index_equal_jax():
               "nb_below", "nb_inner", "nb_outer", "surf_cells",
               "bott_cells"):
         np.testing.assert_array_equal(getattr(tg, f), getattr(jg, f), f)
-    jgi, tgi = jgeo.build_grid_index(jg), tgeo.build_grid_index(tg)
+    jgi, tgi = jgeo.build_grid_index(jg), tgeo.build_grid_index(tg, "cpu")
     for f in jgeo.GridIndex._fields:
         a, b = getattr(jgi, f), getattr(tgi, f)
         if isinstance(a, float):
@@ -149,7 +149,7 @@ def test_walk_setup_tables_match_jax(jax_disk):
     m = jax_disk
     jmodel = jmcrt.McModel(m.tab, m.gi, m.mc_cells(), m.cfg.star_mass)
     jws = jmcrt._WalkSetup(jmodel, 128, True)
-    tws = tmcrt.WalkSetup(torch_model(jmodel), 128)
+    tws = tmcrt.WalkSetup(torch_model(jmodel, "cpu"), 128)
     for f, rtol in (("cellmat", 1e-6), ("tabmat", 1e-6),
                     ("reemit_lam", 1e-6), ("mrw_lnx", 1e-6)):
         a = np.asarray(getattr(jws, f)).reshape(-1)
@@ -166,7 +166,7 @@ def test_lya_sigma_table_is_the_f64_profile(jax_disk):
     import jax.numpy as jnp
     m = jax_disk
     jmodel = jmcrt.McModel(m.tab, m.gi, m.mc_cells(), m.cfg.star_mass)
-    tws = tmcrt.WalkSetup(torch_model(jmodel), 128)
+    tws = tmcrt.WalkSetup(torch_model(jmodel, "cpu"), 128)
     lam32 = np.asarray(m.tab.lam, np.float32).astype(np.float64)
     T = np.exp(np.arange(tmcrt.N_TLYA, dtype=np.float32)
                / np.float32(tws.inv_dlnT_lya)).astype(np.float64)

@@ -124,8 +124,8 @@ def disk():
 def _walk_both(jmodel, lam, en, steps, use_mrw):
     pk = jmcrt.launch_packets(jmodel, jax.random.PRNGKey(5),
                               jnp.asarray(lam), jnp.asarray(en), 0.0, 0.95)
-    tpk = convert.packets(pk)
-    tmodel = torch_model(jmodel)
+    tpk = convert.packets(pk, "cpu")
+    tmodel = torch_model(jmodel, "cpu")
     n, nlam = tmodel.cells.rmin.shape[0], len(jmodel.tab.lam)
     nd = tmodel.cells.rho_dust.shape[0]
     kw = dict(use_mrw=use_mrw, save_counts=True, save_dir=True)
@@ -138,7 +138,7 @@ def _walk_both(jmodel, lam, en, steps, use_mrw):
     # own in f64; tests/test_torch_mc_tables.py compares the two)
     jws = jmcrt._WalkSetup(jmodel, NQ, use_mrw)
     ws.lya_pair = torch.as_tensor(np.array(jws.lya_pair).reshape(-1, 2))
-    ttl = tmcrt.McTallies.zeros(n, nlam, nd, 5)
+    ttl = tmcrt.McTallies.zeros(n, nlam, nd, 5, device="cpu")
     n_active = tmcrt._walk_plain(ws, tpk, ttl, steps, **kw)
     return jpk, jtl, tpk, ttl, int(n_active), float(jmodel.gi.rmax_dom)
 
@@ -202,11 +202,11 @@ def test_thin_absorption_on_the_port():
     model, tab, _ = _uniform_sphere_model(tau_half=0.05)
     B = 4000
     lam, en = np.full(B, 5.5e4), np.ones(B)
-    tmodel = torch_model(model)
+    tmodel = torch_model(model, "cpu")
     gen = torch.Generator().manual_seed(0)
     pk = tmcrt.launch_packets(tmodel, gen, torch.as_tensor(lam),
                               torch.as_tensor(en), 0.0, 1.0)
-    tall = tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5)
+    tall = tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5, device="cpu")
     pk, tall = tmcrt.mc_pass(tmodel, pk, tall, use_mrw=False)
     assert (pk.status != tmcrt.ST_ACTIVE).all()
     absorbed = float(tall.en_gain.sum())
@@ -227,19 +227,19 @@ def test_streamed_refill_on_the_port():
     several top-ups, and the deposited energy statistically equal to the
     full-width pass (MC noise ~ 1/sqrt(N); bound 10%)."""
     model, tab, _ = _uniform_sphere_model(tau_half=20.0)
-    tmodel = torch_model(model)
+    tmodel = torch_model(model, "cpu")
     N = 4096
     lam, en = np.full(N, 3.0e5), np.ones(N)
     gen = torch.Generator().manual_seed(7)
     pk0 = tmcrt.launch_packets(tmodel, gen, torch.as_tensor(lam),
                                torch.as_tensor(en), 0.0, 1.0)
     _, tl_a = tmcrt.mc_pass(tmodel, pk0,
-                            tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5),
+                            tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5, device="cpu"),
                             use_mrw=True, max_steps=40_000)
     refills, stats = [], {}
     _, tl_b, fates = tmcrt.mc_pass_streamed(
         tmodel, gen, lam, en, 0.0, 1.0,
-        tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5), max_batch=512,
+        tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5, device="cpu"), max_batch=512,
         steps_per_call=64, max_steps=40_000, use_mrw=True, compact_floor=64,
         progress_cb=lambda done, act, left: refills.append(left),
         stats=stats)

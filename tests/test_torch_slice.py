@@ -209,11 +209,13 @@ def test_coupled_pool_sweep_matches_jax(t_end):
                           **kw)
 
     tnet = convert.chem_net(net)
-    t_ode = t_odesys.ChemicalODE(tnet, thermal=convert.thermal_balance(tb))
-    trtol, tatol = t_odesys.tolerance_ladder(tnet, 1, 1e-4, 1e-30, D2G)
+    t_ode = t_odesys.ChemicalODE(
+        tnet, thermal=convert.thermal_balance(tb, "cpu"), device="cpu")
+    trtol, tatol = t_odesys.tolerance_ladder(tnet, 1, 1e-4, 1e-30, D2G,
+                                             "cpu")
     tres = t_ode.solve_pool(
-        convert.cell_env(envs), torch.as_tensor(y0b), torch.as_tensor(T0),
-        touts, trtol, tatol, tenvs=convert.thermal_env(tenvs),
+        convert.cell_env(envs, "cpu"), torch.as_tensor(y0b), torch.as_tensor(T0),
+        touts, trtol, tatol, tenvs=convert.thermal_env(tenvs, "cpu"),
         retry_tols=t_ode.retry_ladder(3, 1e-4, 1e-30, D2G), **kw)
 
     np.testing.assert_array_equal(tres.fail.numpy(), np.asarray(jres.fail))

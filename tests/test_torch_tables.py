@@ -42,7 +42,7 @@ def test_interp_matches_jax():
            ji.bilinear(x, y, xg, yg, T2))
     _close(ti.trilinear(t(x), t(y), t(z), t(xg), t(yg), t(zg), t(T3)),
            ji.trilinear(x, y, z, xg, yg, zg, T3))
-    _close(ti.logspace(-3, 2, 11), ji.logspace(-3, 2, 11))
+    _close(ti.logspace(-3, 2, 11, "cpu"), ji.logspace(-3, 2, 11))
 
 
 @pytest.mark.parametrize("name", ["NeufeldH2O", "NeufeldCO"])
@@ -52,7 +52,7 @@ def test_neufeld_tables_match_jax(name):
     rng = np.random.default_rng(1)
     T = 10 ** rng.uniform(0.5, 3.8, 300)     # both sides of the 100 K split
     logN = rng.uniform(8.0, 22.0, 300)
-    a, b = getattr(tt, name)(), getattr(jt, name)()
+    a, b = getattr(tt, name)("cpu"), getattr(jt, name)()
     for pa, pb in zip(a.params(torch.as_tensor(T), torch.as_tensor(logN)),
                       b.params(jnp.asarray(T), jnp.asarray(logN))):
         _close(pa, pb)
@@ -67,19 +67,19 @@ def test_neufeld_h2_visser_and_ion_luts_match_jax():
     from rac2d_tpu.io import tables as jt
     rng = np.random.default_rng(2)
     T = 10 ** rng.uniform(0.5, 4.0, 300)
-    for pa, pb in zip(tt.NeufeldH2().params(torch.as_tensor(T)),
+    for pa, pb in zip(tt.NeufeldH2("cpu").params(torch.as_tensor(T)),
                       jt.NeufeldH2().params(jnp.asarray(T))):
         _close(pa, pb)
     N_H2 = 10 ** rng.uniform(-2.0, 24.0, 300)
     N_CO = 10 ** rng.uniform(-2.0, 20.0, 300)
-    _close(tt.VisserCOShielding().shielding(torch.as_tensor(N_H2),
+    _close(tt.VisserCOShielding("cpu").shielding(torch.as_tensor(N_H2),
                                             torch.as_tensor(N_CO)),
            jt.VisserCOShielding().shielding(jnp.asarray(N_H2),
                                             jnp.asarray(N_CO)))
     ne = 10 ** rng.uniform(-6.0, 8.0, 300)
     for ion in ("N+", "Si+", "Fe+"):
         path = defaults.DATA / f"{ion}_LUT.bin"
-        _close(tt.IonCoolingLUT(path).cooling_per_ion(torch.as_tensor(ne),
+        _close(tt.IonCoolingLUT(path, "cpu").cooling_per_ion(torch.as_tensor(ne),
                                                       torch.as_tensor(T)),
                jt.IonCoolingLUT(path).cooling_per_ion(jnp.asarray(ne),
                                                       jnp.asarray(T)))

@@ -56,7 +56,7 @@ def warm_tdust(r_cells):
     return np.clip(150.0 * np.asarray(r_cells) ** -0.5, 10.0, 1500.0)[None, :]
 
 
-def torch_model(jmodel, device="cpu"):
+def torch_model(jmodel, device):
     """The port's McModel holding the same tables, grid and cells."""
     return tmcrt.McModel(convert.mc_tables(jmodel.tab),
                          convert.grid_index(jmodel.gi, device),
