@@ -12,14 +12,18 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      path: B=256 lanes, n=485 (padded to N=512), on row/column-equilibrated
      I - cJ matrices made from a numpy seed; then K1 and K2 at B in {1, 3}
      and n in {1, 64, 65, 130, 512, 600} (600: K1 takes the trailing
-     columns in two slabs), and on matrices whose pivots reach
-     the 1e-20 floor (the floored pivot must keep its sign);
+     columns in two slabs), on matrices whose pivots reach the 1e-20
+     floor (the floored pivot must keep its sign), and K2 on factors at
+     B in {1, 256} and n in {65, 485, 600} whose unneeded entries are NaN
+     (x must stay finite and equal to x on the clean factor);
   4. time K1/K2, their plain versions and their library yardsticks
      (torch.linalg.lu_factor_ex(pivot=False), torch.linalg.lu_solve with
      identity pivots; CUDA events, in turns plain, kernel, library,
-     library, kernel, plain), and print each kernel's bound: the larger of
-     its f32 FMA work over 67 TFLOP/s and its bytes (inputs read once,
-     outputs written once) over 3.35 TB/s;
+     library, kernel, plain; beside them the host's time to enqueue a
+     kernel call, since an event time near it would be the host's), and
+     print each kernel's bound: the larger of its f32 FMA work over 67
+     TFLOP/s and its bytes (inputs read once, outputs written once) over
+     3.35 TB/s;
   5. the slice: the coupled chemistry+temperature pool sweep through
      ChemicalODE(net, thermal=ThermalBalance(net)).solve_pool on the
      shipped network (NEQ=485), window W=256, per-lane retry ladder of 3
@@ -216,6 +220,19 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def host_ms(fn, reps):
+    """Mean host milliseconds to enqueue fn() (no synchronize inside the
+    clock): where it nears cuda_ms, that time is the host's, not the
+    device's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def element_drift(net, y0, y):
     """Max relative drift of the real elements' totals (slots 3+) per
     lane, where the initial total is > 1e-12."""
@@ -254,7 +271,7 @@ def k1_k2_case(A, b):
 
 def check_kernels(dev, B=W, n=485):
     """Phase 3: K1/K2 vs their plain versions on the card."""
-    from rac2d_torch.ops import blocklu
+    from rac2d_torch.ops import blocklu, kernels
     t0 = time.time()
     A, b = newton_matrices(B, n, 0, dev)
     fac, ref, x, xr, rel = k1_k2_case(A, b)
@@ -294,8 +311,26 @@ def check_kernels(dev, B=W, n=485):
                                          rf.items()) + " (tol 1e-4)")
     if not exact or not max(rf.values()) <= 1e-4:
         raise Fail("phase 3: K1 floors a pivot unlike block_lu")
-    say(f"phase 3 done: B={B} n={n} and {len(worst) + 1} more cases, "
-        f"{time.time() - t0:.1f} s")
+    # K2 reads only what the function needs: NaN in every other entry of
+    # the factor leaves its x unchanged
+    poison = {}
+    for Bs in (1, W):
+        for ns in (65, 485, 600):
+            As, bs = newton_matrices(Bs, ns, ns + Bs + 1, dev)
+            fs, _, xs, xr, _ = k1_k2_case(As, bs)
+            xp = kernels.block_lu_solve(blocklu.poison_unneeded(fs, ns), bs)
+            torch.cuda.synchronize()
+            poison[(Bs, ns)] = (bool(torch.isfinite(xp).all())
+                                and torch.equal(xp, xs), rel_per_lane(xp, xr))
+    say("phase 3 K2 on factors with NaN in every unneeded entry (lu's "
+        "padding and diagonal blocks, the zero triangles and pads of linv "
+        "and uinv): x finite and equal to x on the clean factor, max rel "
+        "to block_lu_solve (tol 1e-4): " + ", ".join(
+            f"B={k[0]} n={k[1]} {v[0]} {v[1]:.2e}" for k, v in poison.items()))
+    if not all(ok and r <= 1e-4 for ok, r in poison.values()):
+        raise Fail("phase 3: K2 reads an entry the function does not need")
+    say(f"phase 3 done: B={B} n={n} and {len(worst) + 1 + len(poison)} more "
+        f"cases, {time.time() - t0:.1f} s")
     return dict(A=A, b=b, fac=fac, ref=ref, err_fac=err_fac, err_x=err_x)
 
 
@@ -379,6 +414,7 @@ def time_kernels(A, b, fac, ref, **_):
             t["library"] += [cuda_ms(libfn, reps_k), cuda_ms(libfn, reps_k)]
         t["kernel"].append(cuda_ms(kern, reps_k))
         t["plain"].append(cuda_ms(plain, reps_p))
+        t["host"] = host_ms(kern, reps_k)
         return t
 
     t1 = turns(lambda: blocklu.block_lu(A),
@@ -396,7 +432,8 @@ def time_kernels(A, b, fac, ref, **_):
         fmt = "/".join(f"{v:.4f}" for v in t["kernel"])
         lfmt = ("/".join(f"{v:.4f}" for v in t["library"]) + " ms"
                 if t["library"] else f"— ({lib[name]})")
-        say(f"phase 4 {name} B={B} n={n} N={N}: kernel {fmt} ms, plain "
+        say(f"phase 4 {name} B={B} n={n} N={N}: kernel {fmt} ms (host "
+            f"enqueue {t['host']:.4f} ms a call), plain "
             + "/".join(f"{v:.3f}" for v in t["plain"]) + f" ms, library "
             f"{lfmt}; bound {b_ms:.4f} ms by {b_by} ({work[0]:.4e} flop, "
             f"{work[1]:.4e} B), kernel at {b_ms / ms:.1%} of it")

@@ -68,10 +68,35 @@
 // For N > 512 the trailing columns are taken in slabs of at most 448, the
 // row panel slab by slab (each slab re-reads the finished L tiles).
 //
-// K2 reads each lane's packed LU once (~1 MB) plus the block inverses
-// (256 KB): it is bound by device-memory bandwidth (3.35 TB/s).  One
-// CTA per lane keeps the 512-vector in shared memory; each warp reduces
-// whole 64-wide rows with coalesced 256-byte reads and shuffles.
+// What bounds K2.  The substitution does one FMA per entry of the factor
+// that it needs: the off-diagonal blocks of lu inside n, the strict lower
+// triangle of each Linv_k (its diagonal is 1) and the upper triangle of
+// each Uinv_k, at the diagonal block's real size: n^2 floats a lane, plus
+// b read and x written, 4 (n^2 + 2n) B.  At B=256, n=485 that is 2.42e8 B,
+// 0.0722 ms at 3.35 TB/s; the FMAs would take 0.0018 ms at 67 TFLOP/s.
+// So K2 is bound by device-memory bandwidth, and nothing it reads depends
+// on the vector it solves for.
+//
+// The design.  One CTA of 256 threads per lane, 72 KB of shared memory
+// at N=512, two CTAs per SM (256 lanes in one wave).  The tiles of the
+// factor (Linv_k, then L_r,k for r > k; later Uinv_k, then U_r,k for
+// r < k) stream in the order the sweep consumes them through a ring of 4
+// stages of 64 rows each, filled by cp.async 16-byte copies that run 3
+// tiles ahead of the substitution (up to 48 KB a CTA in flight): only the
+// 16-byte chunks that hold needed entries are fetched (rows < n of the
+// forward blocks, columns < n of the backward ones, the two triangles, the
+// real part of the last diagonal block), 1.2% more than the n^2 floats at
+// n=485.  A tile's product runs from shared memory: 4 threads a row, each
+// over 16 columns with four 128-bit loads of the tile (row stride 68
+// floats, so a quarter warp's 8 rows fall in 8 bank groups) and of the
+// vector (a broadcast), entries outside the needed ones selected to 0, and
+// two shuffle levels a row.  One barrier a tile; a tile reads its input
+// segment of one of two vectors and writes its output segment of the
+// other, so no second barrier guards a read-then-write.  f32 FFMA only.
+// Left for later work: a cluster of CTAs per lane sharing the vectors
+// through distributed shared memory (more SMs per lane where B is small),
+// and several of _bsolve's right-hand sides per pass over the factor if
+// the refinement is ever restructured to give them at once.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -80,7 +105,6 @@ namespace {
 
 constexpr int BK = 64;            // panel size (same as the JAX package)
 constexpr int NT = 256;           // threads per CTA
-constexpr int NWARP = NT / 32;
 constexpr float PIV_FLOOR = 1e-20f;
 
 // K1 shared memory (floats).  LDT: row stride of the 64x64 tiles, a
@@ -221,12 +245,6 @@ __device__ __forceinline__ float pick(const float v[DQ], int q) {
 
 __device__ __forceinline__ float4 row4(const float acc[4][4], int i) {
   return make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
 }
 
 // K1: one CTA factors one lane.  A: [B, n, n]; lu: [B, N, N] (padded with
@@ -566,67 +584,159 @@ blocklu_factor_kernel(const float* __restrict__ A, int n, int N, float* lu,
   }
 }
 
-// K2: one CTA solves one lane.  b, x: [B, n]; the padded tail of the
-// working vector is zero.
-__global__ void __launch_bounds__(NT)
+// K2's ring: S2 stages of one 64-row tile each (row stride LDT), then the
+// two working vectors y and z of N floats each.
+constexpr int S2 = 4;
+constexpr size_t solve_smem(int N) {
+  return ((size_t)S2 * TILE + 2 * (size_t)N) * sizeof(float);
+}
+
+// One tile of K2's sweep.  The forward sweep takes, for k = 0..K-1, Linv_k
+// (r == k) and then the column blocks L_r,k for r = k+1..K-1; the backward
+// sweep takes, for k = K-1..0, Uinv_k (r == k) and then U_r,k for r =
+// 0..k-1.  fwd is 0 once the walk is past the forward sweep; k < 0 ends it.
+struct SolveStep {
+  int fwd, k, r;
+};
+
+__device__ __forceinline__ void solve_next(SolveStep& s, int K) {
+  if (s.fwd) {
+    if (++s.r == K) {
+      if (++s.k == K) {
+        s.fwd = 0;
+        s.k = s.r = K - 1;
+      } else {
+        s.r = s.k;
+      }
+    }
+  } else {
+    s.r = s.r == s.k ? 0 : s.r + 1;
+    if (s.r == s.k) s.r = --s.k;
+  }
+}
+
+// What of a tile the function needs: rows < nrows, and in row i the
+// columns lo..hi-1 (mode 0: 0..width-1; mode 1, the unit-lower inverse:
+// 0..i-1, its diagonal is 1; mode 2, the upper inverse: i..width-1).
+struct SolveTile {
+  const float* src;      // row 0, column 0 of the tile in device memory
+  int ld, nrows, width, mode;
+};
+
+__device__ __forceinline__ SolveTile solve_tile(const SolveStep& s,
+                                                const float* L,
+                                                const float* LI,
+                                                const float* UI, int n,
+                                                int N) {
+  const int kb = s.k * BK;
+  const int w = min(BK, n - kb);
+  if (s.r == s.k)
+    return {(s.fwd ? LI : UI) + (size_t)s.k * BK * BK, BK, w, w,
+            s.fwd ? 1 : 2};
+  // the forward blocks below the diagonal (k < K-1: all 64 columns lie
+  // inside n, rows stop at n) and the backward ones above it (all 64 rows
+  // lie inside n, columns stop at n)
+  return {L + (size_t)s.r * BK * N + kb, N, min(BK, n - s.r * BK), w, 0};
+}
+
+__device__ __forceinline__ void solve_cols(const SolveTile& t, int i,
+                                           int& lo, int& hi) {
+  lo = t.mode == 2 ? i : 0;
+  hi = i >= t.nrows ? lo : (t.mode == 1 ? i : t.width);
+}
+
+// The needed 16-byte chunks of a tile into a ring stage (row stride LDT),
+// one cp.async each; commits one group (empty past the end of the sweep).
+__device__ __forceinline__ void solve_fetch(float* dst, const SolveStep& s,
+                                            const float* L, const float* LI,
+                                            const float* UI, int n, int N) {
+  if (s.k >= 0) {
+    const SolveTile t = solve_tile(s, L, LI, UI, n, N);
+#pragma unroll
+    for (int u = 0; u < BK * BK / 4 / NT; ++u) {
+      const int e = threadIdx.x + u * NT;
+      const int i = e >> 4, c = (e & 15) << 2;
+      int lo, hi;
+      solve_cols(t, i, lo, hi);
+      if (lo < hi && c + 4 > lo && c < hi)
+        cp_async16(dst + i * LDT + c, t.src + (size_t)i * t.ld + c);
+    }
+  }
+  cp_async_commit();
+}
+
+// K2: one CTA solves one lane.  b, x: [B, n].  The tiles of the factor
+// stream through an S2-stage cp.async ring in the order the sweep takes
+// them; the copies run S2 - 1 tiles ahead of the substitution, one
+// barrier per tile.  y holds b, the forward residuals and at the end x;
+// z the forward result y_k and the backward residuals.  A tile reads its
+// input segment of one vector and writes its output segment of the
+// other (Linv_k: y_k -> z_k; L_r,k: z_k -> y_r; Uinv_k: z_k -> y_k;
+// U_r,k: y_k -> z_r), so no tile reads what it writes.  Entries of both
+// vectors at n and beyond stay 0.
+__global__ void __launch_bounds__(NT, 2)
 blocklu_solve_kernel(const float* __restrict__ lu,
                      const float* __restrict__ linv,
                      const float* __restrict__ uinv,
                      const float* __restrict__ bvec, int n, int N,
                      float* __restrict__ x) {
-  extern __shared__ float y[];      // [N]
-  __shared__ float part[BK];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                   // [S2][BK][LDT]
+  float* y = ring + S2 * TILE;          // [N]
+  float* z = y + N;                     // [N]
+  const int tid = threadIdx.x, lane = tid & 31;
+  // 4 threads a row (xor 8 and 16 apart), each over columns 4(q + 4j),
+  // j = 0..3: a quarter warp reads 8 rows at one column, which the row
+  // stride LDT = 68 puts in 8 different bank groups
+  const int i = (tid >> 5) * 8 + (lane & 7), q = lane >> 3;
   const int K = N / BK;
   const float* L = lu + (size_t)blockIdx.x * N * N;
   const float* LI = linv + (size_t)blockIdx.x * K * BK * BK;
   const float* UI = uinv + (size_t)blockIdx.x * K * BK * BK;
 
-  for (int i = tid; i < N; i += NT)
-    y[i] = i < n ? bvec[(size_t)blockIdx.x * n + i] : 0.f;
-  __syncthreads();
+  SolveStep put = {1, 0, 0}, get = {1, 0, 0};
+  for (int st = 0; st < S2 - 1; ++st) {
+    solve_fetch(ring + st * TILE, put, L, LI, UI, n, N);
+    if (put.k >= 0) solve_next(put, K);
+  }
+  for (int e = tid; e < N; e += NT) {
+    y[e] = e < n ? bvec[(size_t)blockIdx.x * n + e] : 0.f;
+    z[e] = 0.f;
+  }
+  for (int st = 0; get.k >= 0; ++st) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S2 - 2) : "memory");
+    __syncthreads();                    // tile st is in, tile st-1 is done
+    solve_fetch(ring + (st + S2 - 1) % S2 * TILE, put, L, LI, UI, n, N);
+    if (put.k >= 0) solve_next(put, K);
 
-  // forward: y_k = Linv_k (b_k - L_{k,<k} y_{<k})
-  for (int k = 0; k < K; ++k) {
-    const int kb = k * BK;
-    const float* M = LI + (size_t)k * BK * BK;
-    for (int r = warp; r < BK; r += NWARP) {
-      const float s = warp_sum(M[r * BK + lane] * y[kb + lane]
-                               + M[r * BK + lane + 32] * y[kb + lane + 32]);
-      if (lane == 0) part[r] = s;
+    const SolveTile t = solve_tile(get, L, LI, UI, n, N);
+    const bool in_y = get.fwd == (get.r == get.k);
+    const float* vin = (in_y ? y : z) + get.k * BK;
+    float* vout = (in_y ? z : y) + get.r * BK;
+    const float* row = ring + st % S2 * TILE + i * LDT;
+    int lo, hi;
+    solve_cols(t, i, lo, hi);
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * (q + 4 * j);
+      const float4 a = *reinterpret_cast<const float4*>(row + c);
+      const float4 v = *reinterpret_cast<const float4*>(vin + c);
+      // entries outside lo..hi-1 were not fetched (or are not needed)
+      acc = fmaf(c >= lo && c < hi ? a.x : 0.f, v.x, acc);
+      acc = fmaf(c + 1 >= lo && c + 1 < hi ? a.y : 0.f, v.y, acc);
+      acc = fmaf(c + 2 >= lo && c + 2 < hi ? a.z : 0.f, v.z, acc);
+      acc = fmaf(c + 3 >= lo && c + 3 < hi ? a.w : 0.f, v.w, acc);
     }
-    __syncthreads();
-    if (tid < BK) y[kb + tid] = part[tid];
-    __syncthreads();
-    for (int r = kb + BK + warp; r < N; r += NWARP) {
-      const float* row = L + (size_t)r * N + kb;
-      const float s = warp_sum(row[lane] * y[kb + lane]
-                               + row[lane + 32] * y[kb + lane + 32]);
-      if (lane == 0) y[r] -= s;
-    }
-    __syncthreads();
+    acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+    if (q == 0 && i < t.nrows)
+      vout[i] = t.mode == 0 ? vout[i] - acc
+                            : (t.mode == 1 ? vin[i] + acc : acc);
+    solve_next(get, K);
   }
-  // backward: x_k = Uinv_k (y_k - U_{k,>k} x_{>k})
-  for (int k = K - 1; k >= 0; --k) {
-    const int kb = k * BK;
-    const float* M = UI + (size_t)k * BK * BK;
-    for (int r = warp; r < BK; r += NWARP) {
-      const float s = warp_sum(M[r * BK + lane] * y[kb + lane]
-                               + M[r * BK + lane + 32] * y[kb + lane + 32]);
-      if (lane == 0) part[r] = s;
-    }
-    __syncthreads();
-    if (tid < BK) y[kb + tid] = part[tid];
-    __syncthreads();
-    for (int r = warp; r < kb; r += NWARP) {
-      const float* row = L + (size_t)r * N + kb;
-      const float s = warp_sum(row[lane] * y[kb + lane]
-                               + row[lane + 32] * y[kb + lane + 32]);
-      if (lane == 0) y[r] -= s;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < n; i += NT) x[(size_t)blockIdx.x * n + i] = y[i];
+  __syncthreads();
+  for (int e = tid; e < n; e += NT) x[(size_t)blockIdx.x * n + e] = y[e];
 }
 
 }  // namespace
@@ -650,7 +760,12 @@ extern "C" int rac2d_blocklu_solve(const float* lu, const float* linv,
                                    const float* uinv, const float* b,
                                    float* x, int B, int n, int N,
                                    void* stream) {
-  blocklu_solve_kernel<<<B, NT, N * sizeof(float), (cudaStream_t)stream>>>(
+  const size_t smem = solve_smem(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      blocklu_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  blocklu_solve_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
       lu, linv, uinv, b, n, N, x);
   return (int)cudaGetLastError();
 }

@@ -152,6 +152,31 @@ def floored_pivot_matrices(device, seed=5, n=130):
     return torch.as_tensor(A, dtype=torch.float32, device=device), want
 
 
+def poison_unneeded(fac: BlockLU, n: int) -> BlockLU:
+    """A copy of a factorization of [B, n, n] with NaN in every entry that
+    block substitution does not need: the padded rows and columns of lu
+    and its diagonal blocks (the inverses stand in for them), the unit
+    diagonal and upper triangle of linv, the lower triangle of uinv, and
+    the padding of the last diagonal block's inverses.  The kernel K2
+    must give the same x from it as from fac (chip_smoke.py phase 3,
+    tests/test_torch_kernels.py)."""
+    lu, linv, uinv = (t.clone() for t in fac)
+    N = lu.shape[-1]
+    K = N // BK
+    lu[:, n:, :] = float("nan")
+    lu[:, :, n:] = float("nan")
+    for k in range(K):
+        lu[:, k * BK:(k + 1) * BK, k * BK:(k + 1) * BK] = float("nan")
+    ones = torch.ones(BK, BK, dtype=torch.bool, device=lu.device)
+    linv[:, :, torch.triu(ones)] = float("nan")
+    uinv[:, :, torch.tril(ones, -1)] = float("nan")
+    s = n - (K - 1) * BK
+    for t in (linv, uinv):
+        t[:, K - 1, s:, :] = float("nan")
+        t[:, K - 1, :, s:] = float("nan")
+    return BlockLU(lu=lu, linv=linv, uinv=uinv)
+
+
 def _mv(M, v):
     return torch.matmul(M, v[..., None])[..., 0]
 

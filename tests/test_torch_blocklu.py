@@ -62,6 +62,27 @@ def test_block_lu_f64_matches_jax(n):
     assert np.abs(np.einsum("bij,bj->bi", A, x) - b).max() < 1e-10
 
 
+@pytest.mark.parametrize("n", [1, 65, 130, 485])
+def test_factor_holds_exact_zeros_the_solve_kernel_skips(n):
+    """Both packages' f32 factor hold what lets K2 skip entries: linv
+    exactly unit lower triangular, uinv exactly upper triangular, and lu
+    exactly the identity on its padded rows and columns."""
+    rng = np.random.default_rng(n)
+    A = (rng.standard_normal((2, n, n)) / np.sqrt(n)
+         + 2.0 * np.eye(n)).astype(np.float32)
+    N = tblu.padded_size(n)
+    upper = np.triu(np.ones((64, 64), dtype=bool), 1)
+    for fac in (tblu.block_lu(torch.as_tensor(A)), _jax_factor(A)):
+        lu, linv, uinv = (np.asarray(t) for t in fac)
+        assert lu.dtype == np.float32
+        assert (linv[..., upper] == 0).all()
+        assert (np.diagonal(linv, axis1=-2, axis2=-1) == 1).all()
+        assert (uinv[..., upper.T] == 0).all()
+        eye = np.eye(N, dtype=np.float32)
+        assert (lu[:, n:, :] == eye[n:]).all()
+        assert (lu[:, :, n:] == eye[:, n:]).all()
+
+
 def test_block_lu_f32_matches_jax():
     rng = np.random.default_rng(1)
     A = _well_conditioned(2, 128, rng, np.float32)

@@ -99,6 +99,49 @@ def test_kernels_match_plain_on_card(cuda_device, n, B):
     assert _rel(x, xr) <= 1e-4
 
 
+@pytest.mark.parametrize("n", [1, 65, 130])
+def test_poisoned_entries_are_ones_the_solve_skips(n):
+    """blocklu.poison_unneeded hides, besides lu's diagonal blocks (which
+    the substitution never reads), only entries that the factor holds as
+    exact zeros or exact ones (the padding's identity, linv's unit
+    diagonal), so a kernel that skips them computes the same x."""
+    A, b = _matrices(2, n, n + 11, "cpu")
+    fac = blocklu.block_lu(A)
+    pf = blocklu.poison_unneeded(fac, n)
+    N = fac.lu.shape[-1]
+    diag = torch.zeros(N, N, dtype=torch.bool)
+    for kb in range(0, N, blocklu.BK):
+        diag[kb:kb + blocklu.BK, kb:kb + blocklu.BK] = True
+    for name in ("lu", "linv", "uinv"):
+        a, p = getattr(fac, name), getattr(pf, name)
+        hid = torch.isnan(p)
+        assert hid.any(), name
+        assert torch.equal(a[~hid], p[~hid]), name
+        if name == "lu":
+            hid = hid & ~diag
+        assert bool(((a[hid] == 0) | (a[hid] == 1)).all()), name
+    # the plain solve does not read lu's diagonal blocks either
+    lu = fac.lu.clone()
+    lu[:, diag] = float("nan")
+    assert torch.equal(blocklu.block_lu_solve(fac._replace(lu=lu), b),
+                       blocklu.block_lu_solve(fac, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("n", [65, 485, 600])
+def test_solve_reads_only_what_it_needs_on_card(cuda_device, n, B):
+    """K2 on a factor whose unneeded entries are NaN gives the same x as
+    on the clean factor."""
+    A, b = _matrices(B, n, n + B, cuda_device)
+    fac = kernels.block_lu_factor(A)
+    x = kernels.block_lu_solve(fac, b)
+    xp = kernels.block_lu_solve(blocklu.poison_unneeded(fac, n), b)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xp).all())
+    assert torch.equal(x, xp)
+
+
 def test_pivot_floor_keeps_sign_on_cpu():
     A, want = blocklu.floored_pivot_matrices("cpu")
     fac = kernels.block_lu_factor(A)
