@@ -44,27 +44,40 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      words on live agreeing lanes, flux and mrw_path totals within 1e-3,
      and on the agreeing lanes every bin of every tally channel the walk
      writes within 1e-4 of the channel's largest bin; CUDA-event times of
-     the chunk (plain, kernel, kernel, plain);
+     the chunk (plain, kernel, kernel, plain, each an event pair around one
+     call; between the kernel's, its device time with five chunks at a
+     time queued behind a spin kernel, without the wrapper's host time);
+     K3's launch (registers,
+     local bytes, CTAs per SM, grid, shared memory and the tables staged
+     in it); and the hand-built lanes that the JAX walk never ends
+     (mcrt.edge_lanes: grazing descents onto a bottom face, lanes aimed at
+     a cell corner) through K3 and the plain walk, 8 steps: each must
+     leave its cell or end, the same way in both;
   8. kernel K4 (the terminal tally fold) against its plain version on the
      lanes phase 7 retired: collector bins within 1e-5 of the largest;
+     times as in phase 7;
   9. the slice: DiskModel(cfg, device="cuda").prepare() and
      run_mc(n_passes=2, nph=1_000_000) on that disk (streamed pass, batch
      262144, refill and compaction tail); per pass the wall time,
      packets/s, chunks, refills, K3/K4 launches, the tail of <= 64 live
-     lanes, fates and Tdust range; every packet counted, premature and
-     still active at the step cap <= 1e-3, Tdust finite inside
-     [TdustMin, TdustMax], flux finite and >= 0, K3/K4 launched;
+     lanes and its share of the pass, fates and Tdust range; every packet
+     counted, no lane still active at the 100000-step cap (those that are
+     get printed with their cell's bounds), premature <= 1e-3, Tdust
+     finite inside [TdustMin, TdustMax], flux finite and >= 0, K3/K4
+     launched;
  10. the second pass re-run at nph=65536 (one batch, no refill, at most
      8192 steps) with the kernels and with the plain walk and fold, from
      the same cells and generator seed: median |dTdust|/Tdust < 3% over
-     active cells, total absorbed energy in active cells within 2%.
+     active cells, total absorbed energy in active cells within 2%, and
+     en_gain finite in every cell.
 Phases 7 and 8 also print the bounds of K3 and K4 (bytes: the packet
 state read and written once, the tables read once, the tally bins the run
 touched read and written once); no single PyTorch call computes either.
 Phases 5-6 run to T_MAX (1e2 yr) to leave time for the MC phases.
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
 for each TPU probe kernel that K3 or K4 replaces, each with its time,
-bound, plain and library times and launches) and the card's nvidia-smi
+bound, plain and library times and launches; K3/K4 rows add device_ms,
+the queued device time) and the card's nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -550,9 +563,9 @@ def run_slice(dev, n_bench=512, width=W, t_max=T_MAX):
 
 MC_NPH = 1_000_000        # packets per pass (bench.py: 4e6 in production)
 MC_NPH_CHECK = 65_536     # phase 10: one batch, no refill
+MC_STEP_CAP = 100_000     # a pass's step cap (DiskModel.mc_pass max_steps)
 # phase 10's step cap: the plain walk costs about 0.5 s per 64-step chunk
-# at any width, and a few lanes per pass loop until the 100000-step cap
-# (phase 9 prints them as "active"); both walks stop at the same step
+# at any width; both walks stop at the same step
 MC_STEPS_CHECK = 8192
 
 
@@ -601,6 +614,25 @@ def event_ms(fn, reps):
         torch.cuda.synchronize()
         out.append(e0.elapsed_time(e1))
     return float(np.mean(out))
+
+
+def queued_ms(calls):
+    """(mean device ms, mean host ms to enqueue) of the calls, queued
+    behind a spin kernel so that the device runs them back to back while
+    the host is still enqueueing: the event time is the device's alone,
+    without the wrappers' host time (argument checks, the ctypes call)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)      # about 0.1 s of the SM clock
+    e0.record()
+    t0 = time.perf_counter()
+    for fn in calls:
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / len(calls)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / len(calls), host
 
 
 def nbytes(*ts):
@@ -704,23 +736,71 @@ def check_walk(m, dev):
             walk(ws, pk, tl, MC_STEPS, **kw)
         return fn
 
+    def kernel_chunks(reps):
+        jobs = [(pk0.clone(), zeros()) for _ in range(reps)]
+        return queued_ms([
+            lambda pk=pk, tl=tl: kernels.mc_walk(ws, pk, tl, MC_STEPS, **kw)
+            for pk, tl in jobs])
+
+    # two times of the kernel: an event pair around one call (the method
+    # of every earlier run, wrapper host time included) and the device's
+    # alone, with calls queued behind a spin kernel
     p_a = event_ms(run(mcrt._walk_plain), 2)
     k_a = event_ms(run(kernels.mc_walk), 5)
+    (q_a, h_a), (q_b, h_b) = kernel_chunks(5), kernel_chunks(5)
     k_b = event_ms(run(kernels.mc_walk), 5)
     p_b = event_ms(run(mcrt._walk_plain), 2)
     say(f"phase 7 times, one {MC_STEPS}-step chunk at B={MC_BATCH}: kernel "
-        f"{k_a:.3f}/{k_b:.3f} ms, plain {p_a:.1f}/{p_b:.1f} ms; bound "
-        f"{bound_ms:.4f} ms by bytes (packets {pk_bytes}, tables "
+        f"{k_a:.4f}/{k_b:.4f} ms (events around one call), "
+        f"{q_a:.4f}/{q_b:.4f} ms on the device (queued; host enqueue "
+        f"{h_a:.3f}/{h_b:.3f} ms a call), plain {p_a:.1f}/{p_b:.1f} ms; "
+        f"bound {bound_ms:.4f} ms by bytes (packets {pk_bytes}, tables "
         f"{tab_bytes}, touched tally bins {tal_bytes} B), kernel at "
-        f"{bound_ms / ((k_a + k_b) / 2):.2%} of it; library call: none")
+        f"{bound_ms / ((k_a + k_b) / 2):.2%} of it by the one-call time, "
+        f"{bound_ms / ((q_a + q_b) / 2):.2%} by the device time; library "
+        f"call: none")
+    # K3's launch: registers, shared memory, the persistent grid
+    args, _ = kernels.walk_args(ws, pk0.clone(), zeros(), MC_STEPS, **kw)
+    plan = kernels.walk_plan(args)
+    say(f"phase 7 K3 launch: {plan['regs']} registers and "
+        f"{plan['local_bytes']} B of local memory a thread, "
+        f"{plan['threads']} threads a CTA, {plan['blocks_per_sm']} CTAs per "
+        f"SM, grid {plan['grid']} on {plan['sms']} SMs; {plan['smem']} B of "
+        f"shared memory a CTA, tables staged in it: none (all {tab_bytes} B "
+        f"through __ldg: staging the locate and optics tables measured no "
+        f"faster, PERF.md)")
+    # the hand-built lanes that the JAX walk never ends (ROADMAP.md §3),
+    # 8 steps through K3 and through the plain walk
+    edge, kinds = mcrt.edge_lanes(ws)
+    c0 = edge.cell.clone()
+    ends = {}
+    for name, walk in (("kernel", kernels.mc_walk),
+                       ("plain", mcrt._walk_plain)):
+        pk, tl = edge.clone(), zeros()
+        gone = torch.zeros_like(c0, dtype=torch.bool)
+        for _ in range(8):
+            walk(ws, pk, tl, 1, **kw)
+            gone |= (pk.cell != c0) | (pk.status != mcrt.ST_ACTIVE)
+        ends[name] = (pk, gone)
+    (pe, ge), (pp, gp) = ends["kernel"], ends["plain"]
+    edge_same = all(torch.equal(getattr(pe, f), getattr(pp, f))
+                    for f in ("status", "cell", "e_count"))
+    edge_ok = bool(ge.all()) and bool(gp.all()) and edge_same
+    say(f"phase 7 edge lanes ({kinds.count('grazing')} grazing on a bottom "
+        f"face, {kinds.count('corner')} aimed at a corner): left their cell "
+        f"or ended within 8 steps: kernel {int(ge.sum())}, plain "
+        f"{int(gp.sum())} of {len(kinds)}; status, cell and e_count equal: "
+        f"{edge_same}; kernel status {pe.status.tolist()}")
     say(f"phase 7 done: {time.time() - t0:.1f} s")
     if not (share >= 0.99 and rng_eq and rel["flux"] <= 1e-3
             and rel["mrw_path"] <= 1e-3
             and all(r <= 1e-4 for _, r in bins.values())):
         raise Fail("phase 7: K3 disagrees with its plain version")
+    if not edge_ok:
+        raise Fail("phase 7: an edge lane neither left its cell nor ended")
     return dict(model=model, pk=pk_k, zeros=zeros, err=err,
-                ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2,
-                bound_ms=bound_ms)
+                ms=(k_a + k_b) / 2, device_ms=(q_a + q_b) / 2,
+                plain_ms=(p_a + p_b) / 2, bound_ms=bound_ms)
 
 
 def check_fold(model, pk, zeros, **_):
@@ -750,8 +830,14 @@ def check_fold(model, pk, zeros, **_):
             fold(model, pk, tl, 5)
         return fn
 
+    def kernel_folds(reps):
+        tl = zeros()
+        return queued_ms([lambda: kernels.fold_terminal(model, pk, tl, 5)]
+                         * reps)
+
     p_a = event_ms(run(mcrt._fold_terminal_plain), 5)
     k_a = event_ms(run(kernels.fold_terminal), 20)
+    (q_a, h_a), (q_b, h_b) = kernel_folds(20), kernel_folds(20)
     k_b = event_ms(run(kernels.fold_terminal), 20)
     p_b = event_ms(run(mcrt._fold_terminal_plain), 5)
     # K4's bound: the ten lane fields it reads once, the bins it touched
@@ -761,13 +847,16 @@ def check_fold(model, pk, zeros, **_):
         + touched_bytes(tk, ("collector", "collector_img", "ab_en_water"))
     bound_ms = by / HBM_BPS * 1e3
     say(f"phase 8 times at B={pk.x.shape[0]}: kernel {k_a:.4f}/{k_b:.4f} "
-        f"ms, plain {p_a:.3f}/{p_b:.3f} ms; bound {bound_ms:.5f} ms by "
-        f"bytes ({by} B), kernel at {bound_ms / ((k_a + k_b) / 2):.2%} of "
-        f"it; library call: none; {time.time() - t0:.1f} s")
+        f"ms (events around one call), {q_a:.4f}/{q_b:.4f} ms on the device "
+        f"(queued; host enqueue {h_a:.3f}/{h_b:.3f} ms a call), plain "
+        f"{p_a:.3f}/{p_b:.3f} ms; bound {bound_ms:.5f} ms by bytes ({by} B),"
+        f" kernel at {bound_ms / ((k_a + k_b) / 2):.2%} of it by the "
+        f"one-call time, {bound_ms / ((q_a + q_b) / 2):.2%} by the device "
+        f"time; library call: none; {time.time() - t0:.1f} s")
     if not max(rels.values()) <= 1e-5:
         raise Fail("phase 8: K4 disagrees with its plain version")
-    return dict(err=err, ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2,
-                bound_ms=bound_ms)
+    return dict(err=err, ms=(k_a + k_b) / 2, device_ms=(q_a + q_b) / 2,
+                plain_ms=(p_a + p_b) / 2, bound_ms=bound_ms)
 
 
 def run_mc_slice(m):
@@ -783,16 +872,31 @@ def run_mc_slice(m):
         f = st["fates"]
         say(f"phase 9 pass {ip + 1}: {st['packets']} packets in "
             f"{st['wall_s']:.2f} s = {st['packets'] / st['wall_s']:.0f} "
-            f"packets/s; {st['chunks']} walk chunks, {st['refills']} "
-            f"refills, {st['compactions']} compactions; K3 "
+            f"packets/s; {st['chunks']} walk chunks ({st['steps']} steps), "
+            f"{st['refills']} refills, {st['compactions']} compactions; K3 "
             f"{st['k3_launches']}, K4 {st['k4_launches']} launches; tail of "
             f"<= {mcrt.TAIL_LANES} live lanes {st['tail_chunks']} chunks in "
-            f"{st['tail_s']:.3f} s; fates {f}; Tdust over active cells "
+            f"{st['tail_s']:.3f} s, {st['tail_s'] / st['wall_s']:.1%} of the "
+            f"pass; fates {f}; Tdust over active cells "
             f"{st['tdust_active'][0]:.2f}..{st['tdust_active'][1]:.2f} K")
-        # a packet still walking at the pass's step cap (100000) stays
-        # "active", as in the JAX package; it counts with the premature
         if sum(f.values()) != st["packets"]:
             raise Fail(f"phase 9: pass {ip + 1} did not count every packet")
+        # a packet still walking at the pass's step cap (100000) stays
+        # "active", as in the JAX package: none may be left
+        if f["active"] or st["steps"] >= MC_STEP_CAP:
+            pk, c = st.get("live_lanes"), st["cells"]
+            for k in range(0 if pk is None else pk.x.shape[0]):
+                ci = int(pk.cell[k])
+                say(f"phase 9 pass {ip + 1} live lane {k}: x y z "
+                    f"{float(pk.x[k])!r} {float(pk.y[k])!r} "
+                    f"{float(pk.z[k])!r}, v {float(pk.vx[k])!r} "
+                    f"{float(pk.vy[k])!r} {float(pk.vz[k])!r}, lam "
+                    f"{float(pk.lam[k]):.6g}, tau {float(pk.tau[k]):.6g}, "
+                    f"e_count {int(pk.e_count[k])}, cell {ci}: r "
+                    f"[{float(c.rmin[ci])!r}, {float(c.rmax[ci])!r}], z "
+                    f"[{float(c.zmin[ci])!r}, {float(c.zmax[ci])!r}]")
+            raise Fail(f"phase 9: pass {ip + 1} walked to the step cap with "
+                       f"{f['active']} lanes still active")
         if f["premature"] + f["active"] > 1e-3 * st["packets"]:
             raise Fail(f"phase 9: pass {ip + 1}: too many premature packets")
     say(f"phase 9 launches: K3 {launches[0]}, K4 {launches[1]}; "
@@ -831,15 +935,17 @@ def recheck_plain(m):
     Tk = out["kernel"][0].Tdust[use]
     Tp = out["plain"][0].Tdust[use]
     rel = ((Tk - Tp).abs() / Tp).cpu().numpy()
-    # cells outside the disk (no gas, no dust) hold NaN en_gain in both
-    # packages (the f32 blanketing factor at d2h = 0); sum the active ones
     ek = float(out["kernel"][1].en_gain[:, use].sum())
     ep = float(out["plain"][1].en_gain[:, use].sum())
     de = abs(ek - ep) / ep
+    # cells outside the disk hold no dust: their en_gain is 0, not the NaN
+    # of the JAX package's f32 blanketing factor at d2h = 0
     n_bad = [int((~torch.isfinite(out[w][1].en_gain)).any(0).sum())
              for w in ("kernel", "plain")]
     say(f"phase 10 non-finite en_gain: kernel {n_bad[0]}, plain {n_bad[1]} "
-        f"cells, of {int((~use).sum())} inactive")
+        f"cells (tol 0); {int((~use).sum())} cells inactive")
+    if max(n_bad):
+        raise Fail("phase 10: en_gain is not finite in every cell")
     say(f"phase 10 |dTdust|/Tdust over {int(use.sum())} active cells: "
         f"median {np.median(rel):.4f}, p90 {np.percentile(rel, 90):.4f} "
         f"(tol median 0.03); absorbed energy kernel {ek:.6e} plain "
@@ -872,8 +978,9 @@ def main():
         kernels.load()
         say(f"phase 2 build: {time.time() - t0:.1f} s")
         for line in kernels.build_log.splitlines():
-            if "ptxas info" in line and ("Used" in line
-                                         or "Compiling" in line):
+            if ("ptxas info" in line and ("Used" in line
+                                          or "Compiling" in line)) \
+                    or "spill" in line:
                 say("  " + line.strip())
         # ---- 3, 4. K1/K2 vs plain, times; 5, 6. the chemistry slice ----
         chk = check_kernels(dev)
@@ -904,7 +1011,8 @@ def main():
             rows.append({"name": f"{name} ({row})", "route": "cuda",
                          "source": MC_SOURCE, "replaces": replaces,
                          "launches": n, "max_abs_err": r["err"],
-                         "ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "ms": r["ms"], "device_ms": r["device_ms"],
+                         "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": "bytes",
                          "library_ms": None})
     except Fail as e:

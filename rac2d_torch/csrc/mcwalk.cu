@@ -28,18 +28,35 @@
 // selection.  Unlike JAX, a lane leaves the loop once it is no longer
 // ST_ACTIVE, so a dead lane's RNG words stop advancing (they are never
 // read again).  Tallies are added in another order than the JAX fold, so
-// they agree to f32 roundoff, not bit for bit.
+// they agree to f32 roundoff, not bit for bit.  Two departures from the
+// JAX walk, made in _walk_plain too, end lanes that it walks for ever: a
+// crossing through a z face lands strictly past the face, and a stuck
+// lane whose relocation leaves it where it was ends as ST_PREMATURE.
 //
 // What bounds them on this card, and what the design does about it.
-//   K3 is latency- and divergence-bound: per step a lane reads one
-//   cell row (C floats), one optics row (K floats), one Lyman-alpha
-//   pair, one re-emission wavelength and two locate rows (a binary
-//   search over the column's z ladder), all from tables of a few MB that
-//   stay in the 50 MB L2, and then branches on its own event.  The design
-//   gives each packet a thread and keeps its whole state in registers for
-//   the launch, so a chunk of 64 steps costs one read and one write of the
-//   packet arrays; the tables go through __ldg.  Warp-coherent event
-//   handling, shared-memory tables and lane sorting are later work.
+//   K3 is neither bytes- nor FLOP-bound: a 64-step chunk of 262144 lanes
+//   moves 35 MB (0.01 ms at 3.35 TB/s), but each lane-step issues a few
+//   thousand instructions of precise libm (logf, sincosf, sqrtf,
+//   divisions; 2800 SASS instructions in the kernel) behind chains of
+//   dependent table reads that stay in L2, and branches on its own event.
+//   Stage timers (k3_stages.py, -DRAC2D_K3_STAGES) found that in the
+//   first layout, one thread per lane over a grid covering the batch,
+//   about half of the threads' cycles went idle: about 68% of a fresh
+//   chunk's lanes stop inside the chunk, and a warp ran on to its last
+//   live lane.  The busy cycles went first to the optics and Lyman-alpha
+//   rows, then locate, the new direction and wavelength, the cell row
+//   and the draws; the tallies took about 1%.  So K3 runs a persistent
+//   grid (K3_MIN_BLOCKS CTAs of K3_THREADS per SM, the most threads that
+//   keep every value in registers) in which a thread whose lane stops
+//   takes the next unwalked lane from a global counter, one atomicAdd a
+//   warp: warps stay full until the batch runs out.  A new wavelength,
+//   its re-emission quantile and the scattering angles are computed only
+//   for lanes that take them, and an MRW step leaves the step at once.
+//   The tables stay behind __ldg: staging the locate and optics tables in
+//   shared memory (cp.async, once per CTA) measured no faster, and the
+//   warp-aggregated tally atomics were not tried for a stage of 1%.  What
+//   stays idle (about a third) is the drain of the chunk's last lanes,
+//   each walking up to max_steps steps after the counter runs out.
 //   K4 is one pass over the batch: the collector [n_mu, nlam] is binned in
 //   a per-CTA shared-memory histogram and merged with global atomics; the
 //   image-plane bins and the water deposit take global atomics (few lanes
@@ -48,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 // The argument structs are outside the anonymous namespace: the exported
 // C functions take them.
@@ -60,6 +79,8 @@ struct WalkArgs {
       *r_lut_pack, *zc_pack;
   float *flux, *mrw_path, *phc, *en_gain_abso, *cr_count, *dir_flux;
   int* n_active;
+  int* next_lane;
+  unsigned long long* stage_clk;   // [K3_STAGES], RAC2D_K3_STAGES builds
   int B, max_steps, n_cells, nlam, n_dust, C, K, nT, n_quantile, n_mrw,
       n_tlya, n_lut, ncol, max_nz, nmax_encounter, use_mrw, save_counts,
       save_dir;
@@ -90,7 +111,11 @@ namespace {
 constexpr int ST_ACTIVE = 0, ST_ESCAPED = 1, ST_DESTRUCTED = 2,
               ST_PREMATURE = 3, ST_DESTR_WATER = 5;
 constexpr int MAX_DUST = 4;
-constexpr int WALK_THREADS = 128;
+// K3's CTA: threads, and CTAs per SM that __launch_bounds__ asks the
+// register allocation to allow.  384 x 2 is the widest shape measured
+// (PERF.md, "CTA shapes") that spills nothing.
+constexpr int K3_THREADS = 384;
+constexpr int K3_MIN_BLOCKS = 2;
 constexpr int FOLD_THREADS = 256;
 constexpr float AU2CM = 1.49597871e13f;
 constexpr float C_CGS = 2.99792458e10f;
@@ -100,6 +125,43 @@ constexpr float F32_ULP8 = 8.0f * 1.1920928955078125e-07f;
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr float PI_F = 3.141592653589793f;
 constexpr float PI2 = 9.869604401089358f;
+
+// Stage timers of K3's step (kernels.K3_STAGE_NAMES): a build with
+// -DRAC2D_K3_STAGES adds each stage's clock() cycles per thread and sums
+// them into a.stage_clk; other builds compile them away.
+constexpr int K3_STAGES = 11;
+struct StageClock {
+#ifdef RAC2D_K3_STAGES
+  unsigned c[K3_STAGES];
+  unsigned last;
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int k = 0; k < K3_STAGES; ++k) c[k] = 0;
+    last = (unsigned)clock();
+  }
+  __device__ __forceinline__ void mark(int k) {
+    const unsigned t = (unsigned)clock();
+    c[k] += t - last;
+    last = t;
+  }
+  // a lane-less thread's wait for its warp lands in stage k
+  __device__ __forceinline__ void sync_mark(int k) {
+    __syncwarp();
+    mark(k);
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+    if (out == nullptr) return;
+#pragma unroll
+    for (int k = 0; k < K3_STAGES; ++k)
+      atomicAdd(out + k, (unsigned long long)c[k]);
+  }
+#else
+  __device__ __forceinline__ void init() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void sync_mark(int) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+#endif
+};
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
@@ -171,6 +233,8 @@ __device__ int lam_to_bin64(const FoldArgs& a, float lam) {
 struct Exit {
   float length, eps;
   bool found;
+  int side;   // the first candidate at the min: 0 top, 1 bottom, 2-5 cylinders
+  float s;    // mirror sign of z (ray_exit_mirror)
 };
 
 // geometry.ray_cell_exit: six candidate surfaces, masked min.
@@ -208,16 +272,20 @@ __device__ Exit ray_exit(float x, float y, float z, float vx, float vy,
   }
   float length = FL_BIG;
   bool found = false;
+  int side = 0;
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     bool valid = L[k] > MIN_LEN;
     found = found || valid;
-    length = fminf(length, valid ? L[k] : FL_BIG);
+    if (valid && L[k] < length) {
+      length = L[k];
+      side = k;
+    }
   }
   float pos_scale = fabsf(x) + fabsf(y) + fabsf(z) + length;
   float eps = fmaxf(fminf(rmax - rmin, zmax - zmin) * MIN_LEN_FRAC,
                     pos_scale * F32_ULP8);
-  return {found ? length : 0.f, eps, found};
+  return {found ? length : 0.f, eps, found, side, 1.f};
 }
 
 __device__ __forceinline__ Exit ray_exit_mirror(float x, float y, float z,
@@ -225,12 +293,15 @@ __device__ __forceinline__ Exit ray_exit_mirror(float x, float y, float z,
                                                 float rmin, float rmax,
                                                 float zmin, float zmax) {
   float s = (z >= zmin && z <= zmax) ? 1.f : -1.f;
-  return ray_exit(x, y, z * s, vx, vy, vz * s, rmin, rmax, zmin, zmax);
+  Exit e = ray_exit(x, y, z * s, vx, vy, vz * s, rmin, rmax, zmin, zmax);
+  e.s = s;
+  return e;
 }
 
 // geometry.locate, packed f32 path: two row reads; the count of z edges
 // <= |z| by binary search over the sorted ladder (+inf padded).
-__device__ int locate(const WalkArgs& a, float rsq, float zabs) {
+__device__ __forceinline__ int locate(const WalkArgs& a, float rsq,
+                                      float zabs) {
   float r = sqrtf(rsq);
   int slot = (int)floorf((logf(fmaxf(r, 1e-30f)) - a.r_lut_log0) *
                          a.r_lut_inv_d);
@@ -295,311 +366,403 @@ __device__ __forceinline__ float hg_cost(float u, float g) {
   return clampf(small ? 2.f * u - 1.f : ch, -1.f, 1.f);
 }
 
-__global__ void __launch_bounds__(WALK_THREADS)
-    mc_walk_kernel(const WalkArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool alive = false;
-  if (i < a.B) {
-    float x = a.x[i], y = a.y[i], z = a.z[i];
-    float vx = a.vx[i], vy = a.vy[i], vz = a.vz[i];
-    float lam = a.lam[i], tau = a.tau[i];
-    const float en = a.en[i];
-    int cellv = a.cell[i], status = a.status[i], ecount = a.e_count[i];
-    Xorshift rng{a.rs0[i], a.rs1[i], a.rs2[i], a.rs3[i]};
-    const int nd = a.n_dust;
-    const int c_mfp = 12 + 3 * nd, c_base = 13 + 3 * nd;
-    const float fnq = (float)a.n_quantile;
+// One packet's state, in registers while it walks.
+struct Lane {
+  float x, y, z, vx, vy, vz, lam, tau, en;
+  int cell, status, ecount;
+  Xorshift rng;
+};
 
-    for (int step = 0; step < a.max_steps && status == ST_ACTIVE; ++step) {
-      float u[10];
+__device__ __forceinline__ void load_lane(const WalkArgs& a, int i, Lane& p) {
+  p.x = a.x[i]; p.y = a.y[i]; p.z = a.z[i];
+  p.vx = a.vx[i]; p.vy = a.vy[i]; p.vz = a.vz[i];
+  p.lam = a.lam[i]; p.tau = a.tau[i]; p.en = a.en[i];
+  p.cell = a.cell[i]; p.status = a.status[i]; p.ecount = a.e_count[i];
+  p.rng = {a.rs0[i], a.rs1[i], a.rs2[i], a.rs3[i]};
+}
+
+__device__ __forceinline__ void store_lane(const WalkArgs& a, int i,
+                                           const Lane& p) {
+  a.x[i] = p.x; a.y[i] = p.y; a.z[i] = p.z;
+  a.vx[i] = p.vx; a.vy[i] = p.vy; a.vz[i] = p.vz;
+  a.lam[i] = p.lam; a.tau[i] = p.tau;
+  a.cell[i] = p.cell; a.status[i] = p.status; a.e_count[i] = p.ecount;
+  a.rs0[i] = p.rng.s0; a.rs1[i] = p.rng.s1;
+  a.rs2[i] = p.rng.s2; a.rs3[i] = p.rng.s3;
+}
+
+// One walk step of an ST_ACTIVE lane: _walk_plain's step body in its f32
+// operation order, with the tallies added by atomics.
+__device__ __forceinline__ void walk_step(const WalkArgs& a, Lane& p,
+                                          StageClock& sc) {
+  float x = p.x, y = p.y, z = p.z, vx = p.vx, vy = p.vy, vz = p.vz;
+  float lam = p.lam, tau = p.tau;
+  const float en = p.en;
+  const int cellv = p.cell, status = p.status, ecount = p.ecount;
+  const int nd = a.n_dust;
+  const int c_mfp = 12 + 3 * nd, c_base = 13 + 3 * nd;
+  const float fnq = (float)a.n_quantile;
+
+  float u[10];
 #pragma unroll
-      for (int k = 0; k < 10; ++k) u[k] = rng.next();
-      const float u_tau = fmaxf(u[0], 1e-12f);
-      const float u_ev = u[1], u_d1 = u[2], u_d2 = u[3], u_q = u[4];
-      bool active = true;
+  for (int k = 0; k < 10; ++k) u[k] = p.rng.next();
+  const float u_tau = fmaxf(u[0], 1e-12f);
+  const float u_ev = u[1], u_d1 = u[2], u_d2 = u[3], u_q = u[4];
+  sc.mark(0);
 
-      const int cell = clampi(cellv, 0, a.n_cells - 1);
-      const float* crow = a.cellmat + (size_t)cell * a.C;
-      const float rmin = ld(crow), rmax = ld(crow + 1);
-      const float zmin = ld(crow + 2), zmax = ld(crow + 3);
-      const bool using_c = ld(crow + 4) > 0.5f;
-      const float n_gas = ld(crow + 5), n_HI = ld(crow + 6);
-      const float n_H2O = ld(crow + 7);
-      const float Tg = fmaxf(ld(crow + 8), 1.f);
+  const int cell = clampi(cellv, 0, a.n_cells - 1);
+  const float* crow = a.cellmat + (size_t)cell * a.C;
+  const float rmin = ld(crow), rmax = ld(crow + 1);
+  const float zmin = ld(crow + 2), zmax = ld(crow + 3);
+  const bool using_c = ld(crow + 4) > 0.5f;
+  const float n_gas = ld(crow + 5), n_HI = ld(crow + 6);
+  const float n_H2O = ld(crow + 7);
+  const float Tg = fmaxf(ld(crow + 8), 1.f);
 
-      // Modified Random Walk: inscribed-sphere radius and the test
-      bool mrw = false;
-      float R0 = 0.f;
-      if (a.use_mrw) {
-        float r_pk = sqrtf(x * x + y * y);
-        float az = fabsf(z);
-        float dz_lo = zmin <= 0.f ? FL_BIG : az - zmin;
-        R0 = fminf(fminf(r_pk - rmin, rmax - r_pk), fminf(dz_lo, zmax - az)) *
-             0.999f;
-        mrw = using_c && lam > a.mrw_lam_min &&
-              (R0 * AU2CM * ld(crow + c_mfp) > a.mrw_gamma);
-        active = !mrw;
-      }
-
-      const Exit ex =
-          ray_exit_mirror(x, y, z, vx, vy, vz, rmin, rmax, zmin, zmax);
-      const bool stuck = active && !ex.found;
-      active = active && ex.found;
-
-      const float vd = doppler(a.star_k, x, y, z, vx, vy);
-      const float lam_local = lam * (1.f + vd / C_CGS);
-      const int ilam = lam_to_bin32(a, lam_local);
-      const bool in_grid = lam_local >= a.lam_lo && lam_local < a.lam_hi;
-      const bool usingm = using_c && in_grid;
-      const float* trow = a.tabmat + (size_t)ilam * a.K;
-      const float tT = clampf((logf(Tg) - a.lnT_lo_lya) * a.inv_dlnT_lya, 0.f,
-                              (float)(a.n_tlya - 1));
-      const int iT = (int)tT;
-      const float fT = tT - (float)iT;
-      const float* sl = a.lya_pair + 2 * ((size_t)ilam * a.n_tlya + iT);
-      const float sigma_lya = ld(sl) * (1.f - fT) + ld(sl + 1) * fT;
-      const float ab_gas = ld(trow) * n_gas;
-      const float sc_gas = ld(trow + 1) * n_gas + sigma_lya * n_HI;
-      const float ab_h2o = ld(trow + 2) * n_H2O;
-      float ab_d[MAX_DUST], sc_d[MAX_DUST];
-      float sum_ab = 0.f, sum_sc = 0.f;
-#pragma unroll
-      for (int d = 0; d < MAX_DUST; ++d) {
-        ab_d[d] = sc_d[d] = 0.f;
-        if (d < nd) {
-          float rho = ld(crow + 12 + 3 * d);
-          float ab = ld(trow + 5 + 3 * d) * rho;
-          float sc = ld(trow + 6 + 3 * d) * rho;
-          if (d == nd - 1) {
-            // X-ray dust terms ride on the last component
-            float epsd = ld(crow + 9);
-            float sraw = ld(trow + 3) * epsd;
-            float f = blanketing(sraw, ld(crow + 10), ld(crow + 11));
-            ab = ab + f * sraw * n_gas;
-            sc = sc + ld(trow + 4) * n_gas * epsd;
-          }
-          ab_d[d] = ab;
-          sc_d[d] = sc;
-          sum_ab = sum_ab + ab;
-          sum_sc = sum_sc + sc;
-        }
-      }
-      const float ext_ab = ab_gas + ab_h2o + sum_ab;
-      const float ext_sc = sc_gas + sum_sc;
-      const float ext_tot = usingm ? ext_ab + ext_sc : 0.f;
-
-      const float tau_this = ext_tot * AU2CM * ex.length;
-      const bool enc = tau_this >= tau && active && tau_this > 0.f;
-      const float move_len = enc ? ex.length * tau / fmaxf(tau_this, 1e-33f)
-                                 : ex.length + ex.eps;
-      const float nx = x + vx * move_len;
-      const float ny = y + vy * move_len;
-      const float nz = z + vz * move_len;
-      const bool tmask = active && usingm;
-      const float wflux = tmask ? move_len * en : 0.f;
-
-      // event selection: the first channel whose running sum exceeds
-      // u * total, channels in the JAX order (gas abs, gas sca, water,
-      // 0, then abs/sca per dust)
-      float tot = ab_gas;
-      tot = tot + sc_gas;
-      tot = tot + ab_h2o;
-      tot = tot + 0.f;
-#pragma unroll
-      for (int d = 0; d < MAX_DUST; ++d)
-        if (d < nd) {
-          tot = tot + ab_d[d];
-          tot = tot + sc_d[d];
-        }
-      const float u_ev2 = u_ev * tot;
-      int ev = 0;
-      {
-        bool got = false;
-        float cum = 0.f;
-        auto chk = [&](float p, int ch) {
-          cum = cum + p;
-          if (!got && cum > u_ev2) {
-            ev = ch;
-            got = true;
-          }
-        };
-        chk(ab_gas, 0);
-        chk(sc_gas, 1);
-        chk(ab_h2o, 2);
-        chk(0.f, 3);
-#pragma unroll
-        for (int d = 0; d < MAX_DUST; ++d)
-          if (d < nd) {
-            chk(ab_d[d], 4 + 2 * d);
-            chk(sc_d[d], 5 + 2 * d);
-          }
-      }
-      const bool is_x = lam_local >= a.xr_lo && lam_local <= a.xr_hi;
-      const bool ev_gas_abs = enc && ev == 0;
-      const bool ev_gas_sca = enc && ev == 1;
-      const bool ev_h2o_abs = enc && ev == 2;
-      const int idust_ev = clampi(ev >= 4 ? (ev - 4) / 2 : -1, 0, nd - 1);
-      const bool ev_dust = enc && ev >= 4;
-      const bool ev_dust_abs = ev_dust && (ev % 2 == 0);
-      const bool ev_dust_sca = ev_dust && (ev % 2 == 1);
-      const bool dust_abs_keep = ev_dust_abs && !is_x;
-
-      // new directions
-      const float phi = TWO_PI * u_d2;
-      const float g_pk = ld(trow + 7 + 3 * idust_ev);
-      float cost_sca;
-      if (ev_gas_sca && is_x) cost_sca = thomson_cost(u_d1);
-      else if (ev_dust_sca) cost_sca = hg_cost(u_d1, g_pk);
-      else cost_sca = 2.f * u_d1 - 1.f;
-      const bool scatterish = ev_gas_sca || ev_dust_sca;
-      const bool reemitish = dust_abs_keep;
-      float sphi, cphi;
-      sincosf(phi, &sphi, &cphi);
-      float nvx = vx, nvy = vy, nvz = vz;
-      if (scatterish) {
-        // rotate (sint cos phi, sint sin phi, cost) from the z axis into
-        // the frame of (vx, vy, vz)
-        float sint = sqrtf(fmaxf(1.f - cost_sca * cost_sca, 0.f));
-        float ux = sint * cphi, uy = sint * sphi, uz = cost_sca;
-        float st = sqrtf(fmaxf(1.f - vz * vz, 0.f));
-        bool safe = st > 0.f;
-        float cp = safe ? vx / st : 0.f;
-        float sp = safe ? vy / st : 1.f;
-        float ux2 = ux * vz + uz * st;
-        float uz2 = uz * vz - ux * st;
-        nvx = ux2 * cp - uy * sp;
-        nvy = uy * cp + ux2 * sp;
-        nvz = uz2;
-      } else if (reemitish) {
-        float rz = 2.f * u_d1 - 1.f;
-        float rs = sqrtf(fmaxf(1.f - rz * rz, 0.f));
-        nvx = cphi * rs;
-        nvy = sphi * rs;
-        nvz = rz;
-      }
-
-      // new wavelengths
-      const float vd_new = doppler(a.star_k, nx, ny, nz, nvx, nvy);
-      const float lam_scat = lam_local * (1.f - vd_new / C_CGS);
-      const float Td = ld(crow + 13 + 3 * idust_ev);
-      const int itd = (int)clampf(
-          ceilf((logf(fmaxf(Td, 1e-30f)) - a.lnT0) * a.inv_dlnT), 0.f,
-          (float)(a.nT - 1));
-      const int iq = clampi((int)(u_q * fnq), 0, a.n_quantile - 1);
-      int idx_re = (idust_ev * a.nT + itd) * a.n_quantile + iq;
-      if (a.use_mrw && mrw) {
-        int iqm = clampi((int)(u[7] * fnq), 0, a.n_quantile - 1);
-        idx_re = (int)ld(crow + c_base) + iqm;
-      }
-      const float lam_re = ld(a.reemit_lam + idx_re);
-      const bool cold = Td <= a.td_cold;
-      const float new_lam =
-          scatterish ? lam_scat : ((reemitish && !cold) ? lam_re : lam);
-
-      // status updates
-      const bool destro_water = enc && ev_h2o_abs;
-      const bool destro = enc && (ev_gas_abs || (ev_dust_abs && is_x) ||
-                                  (dust_abs_keep && cold));
-      int new_status = (active && destro) ? ST_DESTRUCTED : status;
-      if (active && destro_water) new_status = ST_DESTR_WATER;
-      const int ec2 = ecount + ((enc || stuck) ? 1 : 0);
-      if ((active || stuck) && ec2 >= a.nmax_encounter)
-        new_status = ST_PREMATURE;
-
-      // non-encounter: next cell or escape; stuck lanes relocate
-      const bool crossed = active && !enc;
-      const float rsq_new = stuck ? x * x + y * y : nx * nx + ny * ny;
-      const float z_q = stuck ? z : nz;
-      const int ncl = locate(a, rsq_new, fabsf(z_q));
-      const bool escaped = (crossed || stuck) && ncl < 0;
-      if (escaped) new_status = ST_ESCAPED;
-      const int new_cell = (crossed || stuck) ? max(ncl, 0) : cellv;
-      const bool stuck_same = stuck && ncl == cellv;
-      float s_r = 1.f, z_t = 0.f;
-      if (stuck_same) {
-        float rc = sqrtf(rsq_new);
-        float r_t = fminf(fmaxf(rc, rmin * 1.000002f), rmax * 0.999998f);
-        s_r = r_t / fmaxf(rc, 1e-30f);
-        float dz6 = 2e-6f * (zmax - zmin);
-        float sg = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
-        z_t = sg * fminf(fmaxf(fabsf(z), zmin + dz6), zmax - dz6);
-      }
-      float new_tau = enc ? -logf(u_tau) : tau - tau_this;
-      if (crossed) new_tau = tau - tau_this;
-      new_tau = fmaxf(new_tau, 0.f);
-
-      // tallies (they read this step's state before its update)
-      if (tmask) {
-        const int flat = cell * a.nlam + ilam;
-        atomicAdd(a.flux + flat, wflux);
-        if (a.save_counts) atomicAdd(a.phc + flat, 1.f);
-        if (a.save_dir) {
-          atomicAdd(a.dir_flux + 3 * cell, wflux * vx);
-          atomicAdd(a.dir_flux + 3 * cell + 1, wflux * vy);
-          atomicAdd(a.dir_flux + 3 * cell + 2, wflux * vz);
-        }
-      }
-      if (a.save_counts) {
-        if (dust_abs_keep && active)
-          atomicAdd(a.en_gain_abso + idust_ev * a.n_cells + cell, en);
-        else if (crossed && !escaped)
-          atomicAdd(a.cr_count + new_cell, 1.f);
-      }
-
-      if (mrw) {
-        // MRW diffusion step: first-passage path, exit on the sphere
-        float lnx = ld(a.mrw_lnx +
-                       clampi((int)(u[5] * (float)a.n_mrw), 0, a.n_mrw - 1));
-        float R0cm = R0 * AU2CM;
-        float L_cm = fmaxf(-3.f * R0cm * R0cm * ld(crow + c_mfp) * lnx / PI2,
-                           R0cm);
-        atomicAdd(a.mrw_path + cell, L_cm / AU2CM * en);
-        float mw = 2.f * u[6] - 1.f;
-        float mphi = TWO_PI * u[8];
-        float ms = sqrtf(fmaxf(1.f - mw * mw, 0.f));
-        float msn, mcs;
-        sincosf(mphi, &msn, &mcs);
-        float mx = ms * mcs, my = ms * msn, mz = mw;
-        x = x + R0 * mx;
-        y = y + R0 * my;
-        z = z + R0 * mz;
-        vx = mx;
-        vy = my;
-        vz = mz;
-        lam = lam_re;
-        tau = -logf(fmaxf(u[9], 1e-12f));
-      } else {
-        if (stuck_same) {
-          x = x * s_r;
-          y = y * s_r;
-          z = z_t;
-        } else if (active) {
-          x = nx;
-          y = ny;
-          z = nz;
-        }
-        if (enc) {
-          vx = nvx;
-          vy = nvy;
-          vz = nvz;
-          lam = new_lam;
-        }
-        if (enc || crossed) tau = new_tau;
-      }
-      cellv = new_cell;
-      status = new_status;
-      ecount = ec2 + (mrw ? 1 : 0);
+  // Modified Random Walk: inscribed-sphere radius and the test
+  if (a.use_mrw) {
+    float r_pk = sqrtf(x * x + y * y);
+    float az = fabsf(z);
+    float dz_lo = zmin <= 0.f ? FL_BIG : az - zmin;
+    const float R0 =
+        fminf(fminf(r_pk - rmin, rmax - r_pk), fminf(dz_lo, zmax - az)) *
+        0.999f;
+    if (using_c && lam > a.mrw_lam_min &&
+        (R0 * AU2CM * ld(crow + c_mfp) > a.mrw_gamma)) {
+      // MRW diffusion step: first-passage path, exit on the sphere with
+      // a thermal wavelength.  The rest of the step leaves such a lane's
+      // cell, status and tallies as they are (it is not active there), so
+      // it ends here; the plain walk computes the rest and discards it.
+      sc.mark(1);
+      float lnx = ld(a.mrw_lnx +
+                     clampi((int)(u[5] * (float)a.n_mrw), 0, a.n_mrw - 1));
+      float R0cm = R0 * AU2CM;
+      float L_cm =
+          fmaxf(-3.f * R0cm * R0cm * ld(crow + c_mfp) * lnx / PI2, R0cm);
+      atomicAdd(a.mrw_path + cell, L_cm / AU2CM * en);
+      const int iqm = clampi((int)(u[7] * fnq), 0, a.n_quantile - 1);
+      float mw = 2.f * u[6] - 1.f;
+      float mphi = TWO_PI * u[8];
+      float ms = sqrtf(fmaxf(1.f - mw * mw, 0.f));
+      float msn, mcs;
+      sincosf(mphi, &msn, &mcs);
+      float mx = ms * mcs, my = ms * msn, mz = mw;
+      p.x = x + R0 * mx;
+      p.y = y + R0 * my;
+      p.z = z + R0 * mz;
+      p.vx = mx;
+      p.vy = my;
+      p.vz = mz;
+      p.lam = ld(a.reemit_lam + (int)ld(crow + c_base) + iqm);
+      p.tau = -logf(fmaxf(u[9], 1e-12f));
+      p.ecount = ecount + 1;
+      sc.mark(8);
+      return;
     }
-    a.x[i] = x; a.y[i] = y; a.z[i] = z;
-    a.vx[i] = vx; a.vy[i] = vy; a.vz[i] = vz;
-    a.lam[i] = lam; a.tau[i] = tau;
-    a.cell[i] = cellv; a.status[i] = status; a.e_count[i] = ecount;
-    a.rs0[i] = rng.s0; a.rs1[i] = rng.s1; a.rs2[i] = rng.s2; a.rs3[i] = rng.s3;
-    alive = status == ST_ACTIVE;
+  }
+  sc.mark(1);
+
+  const Exit ex = ray_exit_mirror(x, y, z, vx, vy, vz, rmin, rmax, zmin, zmax);
+  // a ray that misses its own cell relocates (below)
+  const bool stuck = !ex.found, active = ex.found;
+  sc.mark(2);
+
+  const float vd = doppler(a.star_k, x, y, z, vx, vy);
+  const float lam_local = lam * (1.f + vd / C_CGS);
+  const int ilam = lam_to_bin32(a, lam_local);
+  const bool in_grid = lam_local >= a.lam_lo && lam_local < a.lam_hi;
+  const bool usingm = using_c && in_grid;
+  const float tT = clampf((logf(Tg) - a.lnT_lo_lya) * a.inv_dlnT_lya, 0.f,
+                          (float)(a.n_tlya - 1));
+  const int iT = (int)tT;
+  const float fT = tT - (float)iT;
+  const float* sl = a.lya_pair + 2 * ((size_t)ilam * a.n_tlya + iT);
+  const float sigma_lya = ld(sl) * (1.f - fT) + ld(sl + 1) * fT;
+  const float* trow = a.tabmat + (size_t)ilam * a.K;
+  const float ab_gas = ld(trow) * n_gas;
+  const float sc_gas = ld(trow + 1) * n_gas + sigma_lya * n_HI;
+  const float ab_h2o = ld(trow + 2) * n_H2O;
+  float ab_d[MAX_DUST], sc_d[MAX_DUST];
+  float sum_ab = 0.f, sum_sc = 0.f;
+#pragma unroll
+  for (int d = 0; d < MAX_DUST; ++d) {
+    ab_d[d] = sc_d[d] = 0.f;
+    if (d < nd) {
+      float rho = ld(crow + 12 + 3 * d);
+      float ab = ld(trow + 5 + 3 * d) * rho;
+      float sc = ld(trow + 6 + 3 * d) * rho;
+      if (d == nd - 1) {
+        // X-ray dust terms ride on the last component
+        float epsd = ld(crow + 9);
+        float sraw = ld(trow + 3) * epsd;
+        float f = blanketing(sraw, ld(crow + 10), ld(crow + 11));
+        ab = ab + f * sraw * n_gas;
+        sc = sc + ld(trow + 4) * n_gas * epsd;
+      }
+      ab_d[d] = ab;
+      sc_d[d] = sc;
+      sum_ab = sum_ab + ab;
+      sum_sc = sum_sc + sc;
+    }
+  }
+  const float ext_ab = ab_gas + ab_h2o + sum_ab;
+  const float ext_sc = sc_gas + sum_sc;
+  const float ext_tot = usingm ? ext_ab + ext_sc : 0.f;
+  sc.mark(3);
+
+  const float tau_this = ext_tot * AU2CM * ex.length;
+  const bool enc = tau_this >= tau && active && tau_this > 0.f;
+  const float move_len = enc ? ex.length * tau / fmaxf(tau_this, 1e-33f)
+                             : ex.length + ex.eps;
+  const float nx = x + vx * move_len;
+  const float ny = y + vy * move_len;
+  float nz = z + vz * move_len;
+  // a crossing through a z face ends strictly past the face: at a grazing
+  // angle vz * eps is below one ulp of z, and a packet left on its cell's
+  // bottom face is located back in that cell (the JAX walk keeps it
+  // there; see _walk_plain)
+  if (active && !enc && ex.side <= 1) {
+    const float face = ex.s * (ex.side == 0 ? zmax : zmin);
+    const bool up = vz > 0.f;
+    const float past = nextafterf(face, up ? INFINITY : -INFINITY);
+    nz = up ? fmaxf(nz, past) : fminf(nz, past);
+  }
+  const bool tmask = active && usingm;
+  const float wflux = tmask ? move_len * en : 0.f;
+
+  // event selection: the first channel whose running sum exceeds u *
+  // total, channels in the JAX order (gas abs, gas sca, water, 0, then
+  // abs/sca per dust)
+  float tot = ab_gas;
+  tot = tot + sc_gas;
+  tot = tot + ab_h2o;
+  tot = tot + 0.f;
+#pragma unroll
+  for (int d = 0; d < MAX_DUST; ++d)
+    if (d < nd) {
+      tot = tot + ab_d[d];
+      tot = tot + sc_d[d];
+    }
+  const float u_ev2 = u_ev * tot;
+  int ev = 0;
+  {
+    bool got = false;
+    float cum = 0.f;
+    auto chk = [&](float pr, int ch) {
+      cum = cum + pr;
+      if (!got && cum > u_ev2) {
+        ev = ch;
+        got = true;
+      }
+    };
+    chk(ab_gas, 0);
+    chk(sc_gas, 1);
+    chk(ab_h2o, 2);
+    chk(0.f, 3);
+#pragma unroll
+    for (int d = 0; d < MAX_DUST; ++d)
+      if (d < nd) {
+        chk(ab_d[d], 4 + 2 * d);
+        chk(sc_d[d], 5 + 2 * d);
+      }
+  }
+  const bool is_x = lam_local >= a.xr_lo && lam_local <= a.xr_hi;
+  const bool ev_gas_abs = enc && ev == 0;
+  const bool ev_gas_sca = enc && ev == 1;
+  const bool ev_h2o_abs = enc && ev == 2;
+  const int idust_ev = clampi(ev >= 4 ? (ev - 4) / 2 : -1, 0, nd - 1);
+  const bool ev_dust = enc && ev >= 4;
+  const bool ev_dust_abs = ev_dust && (ev % 2 == 0);
+  const bool ev_dust_sca = ev_dust && (ev % 2 == 1);
+  const bool dust_abs_keep = ev_dust_abs && !is_x;
+  sc.mark(4);
+
+  // new directions
+  const float phi = TWO_PI * u_d2;
+  const float g_pk = ld(trow + 7 + 3 * idust_ev);
+  float cost_sca;
+  if (ev_gas_sca && is_x) cost_sca = thomson_cost(u_d1);
+  else if (ev_dust_sca) cost_sca = hg_cost(u_d1, g_pk);
+  else cost_sca = 2.f * u_d1 - 1.f;
+  const bool scatterish = ev_gas_sca || ev_dust_sca;
+  const bool reemitish = dust_abs_keep;
+  float nvx = vx, nvy = vy, nvz = vz;
+  if (scatterish || reemitish) {
+    float sphi, cphi;
+    sincosf(phi, &sphi, &cphi);
+    if (scatterish) {
+      // rotate (sint cos phi, sint sin phi, cost) from the z axis into the
+      // frame of (vx, vy, vz)
+      float sint = sqrtf(fmaxf(1.f - cost_sca * cost_sca, 0.f));
+      float ux = sint * cphi, uy = sint * sphi, uz = cost_sca;
+      float st = sqrtf(fmaxf(1.f - vz * vz, 0.f));
+      bool safe = st > 0.f;
+      float cp = safe ? vx / st : 0.f;
+      float sp = safe ? vy / st : 1.f;
+      float ux2 = ux * vz + uz * st;
+      float uz2 = uz * vz - ux * st;
+      nvx = ux2 * cp - uy * sp;
+      nvy = uy * cp + ux2 * sp;
+      nvz = uz2;
+    } else {
+      float rz = 2.f * u_d1 - 1.f;
+      float rs = sqrtf(fmaxf(1.f - rz * rz, 0.f));
+      nvx = cphi * rs;
+      nvy = sphi * rs;
+      nvz = rz;
+    }
+  }
+
+  // new wavelengths, computed only where a lane takes them: Doppler-
+  // shifted out after a scattering; a warm re-emission draws from the
+  // re-emission quantiles at the frozen Tdust
+  const float Td = ld(crow + 13 + 3 * idust_ev);
+  const bool cold = Td <= a.td_cold;
+  float new_lam = lam;
+  if (scatterish) {
+    const float vd_new = doppler(a.star_k, nx, ny, nz, nvx, nvy);
+    new_lam = lam_local * (1.f - vd_new / C_CGS);
+  } else if (reemitish && !cold) {
+    const int itd = (int)clampf(
+        ceilf((logf(fmaxf(Td, 1e-30f)) - a.lnT0) * a.inv_dlnT), 0.f,
+        (float)(a.nT - 1));
+    const int iq = clampi((int)(u_q * fnq), 0, a.n_quantile - 1);
+    new_lam = ld(a.reemit_lam + (idust_ev * a.nT + itd) * a.n_quantile + iq);
+  }
+  sc.mark(5);
+
+  // status updates
+  const bool destro_water = enc && ev_h2o_abs;
+  const bool destro = enc && (ev_gas_abs || (ev_dust_abs && is_x) ||
+                              (dust_abs_keep && cold));
+  int new_status = (active && destro) ? ST_DESTRUCTED : status;
+  if (active && destro_water) new_status = ST_DESTR_WATER;
+  const int ec2 = ecount + ((enc || stuck) ? 1 : 0);
+  if ((active || stuck) && ec2 >= a.nmax_encounter) new_status = ST_PREMATURE;
+
+  // non-encounter: next cell or escape; stuck lanes relocate
+  const bool crossed = active && !enc;
+  const float rsq_new = stuck ? x * x + y * y : nx * nx + ny * ny;
+  const float z_q = stuck ? z : nz;
+  const int ncl = locate(a, rsq_new, fabsf(z_q));
+  const bool escaped = (crossed || stuck) && ncl < 0;
+  if (escaped) new_status = ST_ESCAPED;
+  const int new_cell = (crossed || stuck) ? max(ncl, 0) : cellv;
+  const bool stuck_same = stuck && ncl == cellv;
+  float s_r = 1.f, z_t = 0.f;
+  if (stuck_same) {
+    float rc = sqrtf(rsq_new);
+    float r_t = fminf(fmaxf(rc, rmin * 1.000002f), rmax * 0.999998f);
+    s_r = r_t / fmaxf(rc, 1e-30f);
+    float dz6 = 2e-6f * (zmax - zmin);
+    float sg = z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
+    z_t = sg * fminf(fmaxf(fabsf(z), zmin + dz6), zmax - dz6);
+    // a relocation that leaves the packet where it was is a fixed point
+    // (stuck again at every step, tallying nothing) that would walk to
+    // the encounter cap: it ends now, with the cap's fate
+    if (x * s_r == x && y * s_r == y && z_t == z) new_status = ST_PREMATURE;
+  }
+  float new_tau = tau - tau_this;
+  if (enc) new_tau = -logf(u_tau);
+  new_tau = fmaxf(new_tau, 0.f);
+  sc.mark(6);
+
+  // tallies (they read this step's state before its update)
+  if (tmask) {
+    const int flat = cell * a.nlam + ilam;
+    atomicAdd(a.flux + flat, wflux);
+    if (a.save_counts) atomicAdd(a.phc + flat, 1.f);
+    if (a.save_dir) {
+      atomicAdd(a.dir_flux + 3 * cell, wflux * vx);
+      atomicAdd(a.dir_flux + 3 * cell + 1, wflux * vy);
+      atomicAdd(a.dir_flux + 3 * cell + 2, wflux * vz);
+    }
+  }
+  if (a.save_counts) {
+    if (dust_abs_keep && active)
+      atomicAdd(a.en_gain_abso + idust_ev * a.n_cells + cell, en);
+    else if (crossed && !escaped)
+      atomicAdd(a.cr_count + new_cell, 1.f);
+  }
+  sc.mark(7);
+
+  if (stuck_same) {
+    x = x * s_r;
+    y = y * s_r;
+    z = z_t;
+  } else if (active) {
+    x = nx;
+    y = ny;
+    z = nz;
+  }
+  if (enc) {
+    vx = nvx;
+    vy = nvy;
+    vz = nvz;
+    lam = new_lam;
+  }
+  if (enc || crossed) tau = new_tau;
+  p.x = x; p.y = y; p.z = z;
+  p.vx = vx; p.vy = vy; p.vz = vz;
+  p.lam = lam; p.tau = tau;
+  p.cell = new_cell;
+  p.status = new_status;
+  p.ecount = ec2;
+  sc.mark(8);
+}
+
+// K3: a persistent grid (a few CTAs per SM, sized by the occupancy of
+// this kernel); each thread walks lanes one after another.  A thread
+// whose lane stops (no longer ST_ACTIVE, or max_steps steps taken) stores
+// it and takes the next unwalked lane of the batch from a global counter
+// (one atomicAdd a warp for all its threads that need one), so warps stay
+// full while lanes die; lanes that arrive stopped cost one status read.
+__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
+    mc_walk_kernel(const WalkArgs a) {
+  StageClock sc;
+  sc.init();
+  const unsigned FULL = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  Lane p;
+  int i = 0, steps = 0, n_alive = 0;
+  bool have = false, done = false;
+  for (;;) {
+    // hand-off: threads without a lane take the next ones of the batch
+    for (;;) {
+      const bool need = !have && !done;
+      const unsigned m = __ballot_sync(FULL, need);
+      if (m == 0) break;
+      const int leader = __ffs(m) - 1;
+      int base = 0;
+      if ((int)lane == leader) base = atomicAdd(a.next_lane, __popc(m));
+      base = __shfl_sync(FULL, base, leader);
+      if (need) {
+        i = base + __popc(m & ((1u << lane) - 1u));
+        if (i >= a.B) {
+          done = true;
+        } else if (a.status[i] == ST_ACTIVE) {
+          load_lane(a, i, p);
+          have = true;
+          steps = 0;
+        }
+      }
+    }
+    sc.mark(9);
+    if (!__any_sync(FULL, have)) break;
+    if (have) {
+      walk_step(a, p, sc);
+      if (++steps == a.max_steps || p.status != ST_ACTIVE) {
+        store_lane(a, i, p);
+        n_alive += p.status == ST_ACTIVE ? 1 : 0;
+        have = false;
+      }
+    }
+    sc.sync_mark(10);
   }
   // live-lane count: one atomic per warp
-  const unsigned m = __ballot_sync(0xffffffffu, alive);
-  if ((threadIdx.x & 31) == 0 && m) atomicAdd(a.n_active, __popc(m));
+  const int s = __reduce_add_sync(FULL, n_alive);
+  if (lane == 0 && s) atomicAdd(a.n_active, s);
+  sc.flush(a.stage_clk);
 }
 
 __global__ void __launch_bounds__(FOLD_THREADS)
@@ -653,14 +816,77 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     if (hist[k] != 0.f) atomicAdd(a.collector + k, hist[k]);
 }
 
+// K3's launch for these arguments.
+struct WalkPlan {
+  int threads, blocks_per_sm, grid, regs, local_bytes, smem, sms;
+};
+
+// What the plan takes from the device and the build (occupancy, SMs,
+// registers), read once per device.
+cudaError_t device_plan(int dev, WalkPlan* p) {
+  cudaFuncAttributes fa;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, mc_walk_kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &p->blocks_per_sm, mc_walk_kernel, K3_THREADS, 0);
+  if (e != cudaSuccess) return e;
+  p->threads = K3_THREADS;
+  p->regs = fa.numRegs;
+  p->local_bytes = (int)fa.localSizeBytes;
+  p->smem = (int)fa.sharedSizeBytes;
+  return cudaSuccess;
+}
+
+// A grid of (CTAs per SM by the kernel's occupancy) x SMs on the current
+// device, no larger than a batch of B lanes needs.
+cudaError_t walk_plan(int B, WalkPlan* p) {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static WalkPlan cache[MAX_DEVICES];
+  static bool ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev]) {
+      e = device_plan(dev, &cache[dev]);
+      if (e != cudaSuccess) return e;
+      ready[dev] = true;
+    }
+    *p = cache[dev];
+  }
+  const int need = (B + K3_THREADS - 1) / K3_THREADS;
+  const int full = p->blocks_per_sm * p->sms;
+  p->grid = full < need ? full : need;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int rac2d_mc_walk(const WalkArgs* a, cudaStream_t stream) {
-  if (a->B > 0) {
-    const int grid = (a->B + WALK_THREADS - 1) / WALK_THREADS;
-    mc_walk_kernel<<<grid, WALK_THREADS, 0, stream>>>(*a);
-  }
+  if (a->B <= 0) return (int)cudaGetLastError();
+  WalkPlan p;
+  const cudaError_t e = walk_plan(a->B, &p);
+  if (e != cudaSuccess) return (int)e;
+  mc_walk_kernel<<<p.grid, p.threads, 0, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// K3's launch for these arguments, as 7 ints: threads per CTA, CTAs per
+// SM, grid, registers and local memory bytes a thread, shared memory
+// bytes a CTA, SMs.
+extern "C" int rac2d_mc_walk_plan(const WalkArgs* a, int* out) {
+  WalkPlan p;
+  const cudaError_t e = walk_plan(a->B, &p);
+  if (e != cudaSuccess) return (int)e;
+  const int v[7] = {p.threads, p.blocks_per_sm, p.grid, p.regs,
+                    p.local_bytes, p.smem, p.sms};
+  for (int k = 0; k < 7; ++k) out[k] = v[k];
+  return 0;
 }
 
 extern "C" int rac2d_fold_terminal(const FoldArgs* a, cudaStream_t stream) {

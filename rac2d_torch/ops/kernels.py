@@ -31,6 +31,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import types
 
 import torch
@@ -60,6 +61,7 @@ _FUNCS = {
     "rac2d_blocklu_solve": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "rac2d_cuda_error_string": ([_I], ctypes.c_char_p),
     "rac2d_mc_walk": ([_P, _P], _I),
+    "rac2d_mc_walk_plan": ([_P, _P], _I),
     "rac2d_fold_terminal": ([_P, _P], _I),
 }
 
@@ -72,22 +74,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def load():
-    """Build (once per source hash) and load the kernel libraries: one
-    shared library per source, all nvcc runs started together."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
+def _build(sources, defines=()):
+    """Compile each source (once per hash of source and flags) into its
+    own library in BUILD_DIR, all nvcc runs started together.  Returns
+    (library paths, compiler output of the builds done here)."""
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        flags = NVCC_FLAGS + EXTRA_FLAGS.get(src.name, [])
+    for src in sources:
+        flags = NVCC_FLAGS + EXTRA_FLAGS.get(src.name, []) \
+            + [f"-D{d}" for d in defines]
         h = hashlib.sha1(" ".join(flags).encode())
         h.update(src.read_bytes())
         so = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
         proc = tmp = cmd = None
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            tmp = so.with_name(
+                f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
@@ -105,9 +107,13 @@ def load():
             logs.append(out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    build_log = "".join(logs)
+    return [so for so, *_ in jobs], "".join(logs)
+
+
+def _bind(paths):
+    """The exported functions of _FUNCS found in the libraries."""
     funcs = {}
-    for so, *_ in jobs:
+    for so in paths:
         dll = ctypes.CDLL(str(so))
         for name, (argtypes, restype) in _FUNCS.items():
             fn = getattr(dll, name, None)
@@ -115,11 +121,31 @@ def load():
                 fn.argtypes = argtypes
                 fn.restype = restype
                 funcs[name] = fn
-    missing = set(_FUNCS) - set(funcs)
+    return types.SimpleNamespace(**funcs)
+
+
+def load():
+    """Build (once per source hash) and load the kernel libraries: one
+    shared library per source, all nvcc runs started together."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    paths, build_log = _build(sorted(CSRC.glob("*.cu")))
+    lib = _bind(paths)
+    missing = set(_FUNCS) - set(vars(lib))
     if missing:
         raise RuntimeError(f"kernel libraries lack {sorted(missing)}")
-    _lib = types.SimpleNamespace(**funcs)
+    _lib = lib
     return _lib
+
+
+def load_stage_timers():
+    """mcwalk.cu built with -DRAC2D_K3_STAGES (K3 with clock() timers
+    around each stage of its step) into a library of its own.  Returns
+    (its functions, the path of the library, the compiler output)."""
+    load()          # the error-string helper and the plain build
+    paths, log = _build([CSRC / "mcwalk.cu"], ["RAC2D_K3_STAGES"])
+    return _bind(paths), paths[0], log
 
 
 def _check(name, t, shape, device, dtype=torch.float32):
@@ -215,6 +241,12 @@ block_lu_solve.launches = 0
 # structs WalkArgs/FoldArgs there list the same fields in the same order.
 
 MAX_DUST = 4      # dust components the walk kernel keeps in registers
+# the stages of K3's step that a build with RAC2D_K3_STAGES times with
+# clock() (csrc/mcwalk.cu StageClock), in the order of the step
+K3_STAGE_NAMES = ("draws", "cell row", "exit", "optics+Lya", "event",
+                  "direction+wavelength", "locate", "tallies", "MRW+update",
+                  "lane in/out", "idle")
+K3_STAGES = len(K3_STAGE_NAMES)
 
 
 def _struct(name, fields):
@@ -228,7 +260,8 @@ def _struct(name, fields):
 _WalkArgs = _struct("WalkArgs", [
     ("p", "x y z vx vy vz lam en tau cell status e_count rs0 rs1 rs2 rs3 "
           "cellmat tabmat lya_pair reemit_lam mrw_lnx r_lut_pack zc_pack "
-          "flux mrw_path phc en_gain_abso cr_count dir_flux n_active"),
+          "flux mrw_path phc en_gain_abso cr_count dir_flux n_active "
+          "next_lane stage_clk"),
     ("i", "B max_steps n_cells nlam n_dust C K nT n_quantile n_mrw n_tlya "
           "n_lut ncol max_nz nmax_encounter use_mrw save_counts save_dir"),
     ("i3", "seg_i0 seg_n"),
@@ -301,15 +334,37 @@ def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
     `tallies`.  Returns the number of lanes still active (0-d tensor).
     On a CPU tensor this is ``mcrt._walk_plain``."""
     from . import mcrt
-    from .optics import f32
     kw = dict(nmax_encounter=nmax_encounter, use_mrw=use_mrw,
               mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
               save_dir=save_dir, save_counts=save_counts)
     if not _on_cuda(pk.x, "mc_walk"):
         return mcrt._walk_plain(ws, pk, tallies, max_steps, **kw)
+    lib = load()
+    args, counters = walk_args(ws, pk, tallies, max_steps, **kw)
+    with torch.cuda.device(pk.x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.rac2d_mc_walk, ctypes.addressof(args), stream)
+    mc_walk.launches += 1
+    return counters[0]
+
+
+mc_walk.launches = 0
+
+
+def walk_args(ws, pk, tallies, max_steps, nmax_encounter=200_000,
+              use_mrw=True, mrw_gamma=4.0, mrw_lam_min=1e4, save_dir=False,
+              save_counts=True, stage_clk=None):
+    """K3's checked argument struct for packets and tallies on a CUDA
+    device, and the int32 counters it writes ([0]: lanes still active).
+    stage_clk (int64 [K3_STAGES], optional) receives the clock cycles of
+    each stage of the step from a build with RAC2D_K3_STAGES."""
+    from . import mcrt
+    from .optics import f32
     dev = pk.x.device
     B = _check_packets(pk, dev)
     gi = ws.gi
+    if max_steps < 1:
+        raise ValueError(f"mc_walk: max_steps={max_steps}, at least 1")
     if gi.r_lut_pack is None or gi.zc_pack is None:
         raise ValueError("mc_walk: the kernel takes the packed locate "
                          "tables (geometry.build_grid_index)")
@@ -334,8 +389,9 @@ def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
             ("cr_count", tallies.cr_count, (n,)),
             ("dir_flux", tallies.dir_flux, (n, 3))):
         _check(name, t, shape, dev)
-    lib = load()
-    n_active = torch.zeros(1, dtype=torch.int32, device=dev)
+    if stage_clk is not None:
+        _check("stage_clk", stage_clk, (K3_STAGES,), dev, torch.int64)
+    counters = torch.zeros(2, dtype=torch.int32, device=dev)
     vals = {k: getattr(pk, k) for k in _PK_F32 + _PK_I32}
     vals.update(
         cellmat=ws.cellmat, tabmat=ws.tabmat, lya_pair=ws.lya_pair,
@@ -343,7 +399,9 @@ def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
         r_lut_pack=gi.r_lut_pack, zc_pack=gi.zc_pack, flux=tallies.flux,
         mrw_path=tallies.mrw_path, phc=tallies.phc,
         en_gain_abso=tallies.en_gain_abso, cr_count=tallies.cr_count,
-        dir_flux=tallies.dir_flux, n_active=n_active,
+        dir_flux=tallies.dir_flux, n_active=counters.data_ptr(),
+        next_lane=counters.data_ptr() + 4,
+        stage_clk=0 if stage_clk is None else stage_clk,
         B=B, max_steps=int(max_steps), n_cells=n, nlam=nlam, n_dust=nd,
         C=C, K=K, nT=ws.nT, n_quantile=ws.n_quantile, n_mrw=ws.n_mrw,
         n_tlya=mcrt.N_TLYA, n_lut=n_lut, ncol=ncol, max_nz=max_nz,
@@ -359,15 +417,22 @@ def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
         rmin_dom=f32(gi.rmin_dom), rmax_dom=f32(gi.rmax_dom),
         zmax_dom=f32(gi.zmax_dom))
     vals.update(_seg_fields(ws.seg, f32))
-    args = _fill(_WalkArgs, vals)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.rac2d_mc_walk, ctypes.addressof(args), stream)
-    mc_walk.launches += 1
-    return n_active[0]
+    return _fill(_WalkArgs, vals), counters
 
 
-mc_walk.launches = 0
+WALK_PLAN_FIELDS = ("threads", "blocks_per_sm", "grid", "regs",
+                    "local_bytes", "smem", "sms")
+
+
+def walk_plan(args, lib=None):
+    """K3's launch for a walk_args struct (a dict): threads per CTA, CTAs
+    per SM, grid, registers and local memory bytes a thread, shared
+    memory bytes a CTA, SMs."""
+    lib = lib or load()
+    out = (ctypes.c_int * len(WALK_PLAN_FIELDS))()
+    _launch(lib.rac2d_mc_walk_plan, ctypes.addressof(args),
+            ctypes.addressof(out))
+    return dict(zip(WALK_PLAN_FIELDS, out))
 
 
 def fold_terminal(model, pk, tallies, n_mu):

@@ -6,8 +6,9 @@ src/montecarlo.f90:398-800 ``montecarlo_do`` /
 
 - Packets are a structure of arrays.  The walk advances every live
   packet by up to ``max_steps`` steps per call: on a CUDA tensor that is
-  kernel K3 (``csrc/mcwalk.cu``, one thread per packet, the step loop
-  inside the kernel, tallies by atomic adds); on a CPU tensor, or with
+  kernel K3 (``csrc/mcwalk.cu``, a persistent grid whose threads walk
+  packets one after another, the step loop inside the kernel, tallies by
+  atomic adds); on a CPU tensor, or with
   ``walk="plain"``, it is ``_walk_plain``, the JAX walk body as batched
   torch ops, one step per loop iteration.  Both advance the packet
   arrays and the tallies IN PLACE.
@@ -349,7 +350,14 @@ def _walk_plain(ws: WalkSetup, pk: Packets, tallies: McTallies,
     every step.  Tallies accumulate per call in sink-padded buffers
     (``index_add_``) and are added once at the end, as JAX folds its
     event log.  Updates pk and tallies in place; returns the number of
-    lanes still active (a 0-d tensor)."""
+    lanes still active (a 0-d tensor).
+
+    Two departures from the JAX walk end lanes that it walks forever
+    (K3 makes both, in the same f32 operation order): a crossing through
+    a z face lands strictly past the face (``torch.nextafter``), where
+    JAX can leave it on the face and locate it back into its own cell;
+    and a stuck lane whose relocation leaves it where it was ends as
+    ST_PREMATURE, the fate JAX gives it at the encounter cap."""
     L = ws.L
     cm, tm = ws.cellmat, ws.tabmat
     n_cells, nlam, n_dust = ws.n_cells, ws.nlam, ws.n_dust
@@ -401,7 +409,7 @@ def _walk_plain(ws: WalkSetup, pk: Packets, tallies: McTallies,
                    & (R0 * c.AU2cm * crow[:, imfp] > mrw_gamma))
             active = active & ~mrw
 
-        length, eps, _, found = geometry.ray_cell_exit_mirror(
+        length, eps, dirtype, found = geometry.ray_cell_exit_mirror(
             x, y, z, vx, vy, vz, rmin, rmax, zmin, zmax)
         # a ray that misses its own cell relocates (below)
         stuck = active & ~found
@@ -450,6 +458,17 @@ def _walk_plain(ws: WalkSetup, pk: Packets, tallies: McTallies,
         nx = x + vx * move_len
         ny = y + vy * move_len
         nz = z + vz * move_len
+        # a crossing through a z face ends strictly past the face: at a
+        # grazing angle vz * eps is below one ulp of z, and a packet left
+        # on its cell's bottom face is located back in that cell
+        zface = active & ~enc & (dirtype <= geometry.DIR_BOTTOM)
+        face = torch.where((z >= zmin) & (z <= zmax), 1.0, -1.0) \
+            * torch.where(dirtype == geometry.DIR_TOP, zmax, zmin)
+        up = vz > 0.0
+        past = torch.nextafter(face, torch.where(up, np.inf, -np.inf)
+                               .to(F))
+        nz = torch.where(zface, torch.where(up, torch.maximum(nz, past),
+                                            torch.minimum(nz, past)), nz)
 
         tmask = active & using
         wflux = torch.where(tmask, move_len * en, 0.0)
@@ -544,6 +563,12 @@ def _walk_plain(ws: WalkSetup, pk: Packets, tallies: McTallies,
         dz6 = 2e-6 * (zmax - zmin)
         z_t = torch.sign(z) * torch.clamp(torch.abs(z), zmin + dz6,
                                           zmax - dz6)
+        # a relocation that leaves the packet where it was is a fixed
+        # point (same position, direction and cell: stuck again at every
+        # step, tallying nothing) that would walk to the encounter cap:
+        # it ends now, with the cap's fate
+        pinned = stuck_same & (x * s_r == x) & (y * s_r == y) & (z_t == z)
+        new_status = torch.where(pinned, ST_PREMATURE, new_status)
 
         new_tau = torch.where(enc, -torch.log(u_tau), tau - tau_this)
         new_tau = torch.where(crossed, tau - tau_this, new_tau)
@@ -782,7 +807,11 @@ def _en_gain_from_flux(model: McModel, tallies: McTallies) -> McTallies:
                 torch)
             ab = ab + f * sraw * n_gas[:, None]
         gains.append((flux * ab).sum(1) * f32(c.AU2cm))
-    tallies.en_gain.copy_(torch.stack(gains) + tallies.en_gain_mrw)
+    # a cell with no dust absorbs nothing; there the f32 blanketing
+    # factor divides by d2h = 0 and is NaN (JAX leaves the NaN in place)
+    tallies.en_gain.copy_(torch.where(
+        cells.d2h.to(F) > 0.0, torch.stack(gains) + tallies.en_gain_mrw,
+        0.0))
     return tallies
 
 
@@ -899,7 +928,8 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
     as "active", as in the JAX package.  With a `stats` dict, adds the
     counts of walk chunks, refills, compactions and walk steps to it, and
     the chunks and host seconds spent on a tail of at most TAIL_LANES
-    live lanes after the pool ran dry."""
+    live lanes after the pool ran dry, and (as "live_lanes") the packets
+    still walking at max_steps, if any."""
     dev = tallies.flux.device
     lam_all = np.asarray(lam_all, dtype=np.float64)
     en_all = np.asarray(en_all, dtype=np.float64)
@@ -974,6 +1004,10 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
     if stats is not None:
         for k2, v in st.items():
             stats[k2] = stats.get(k2, 0) + v
+        if final["active"]:
+            # the lanes still walking at max_steps, for diagnosis
+            stats["live_lanes"] = packets.take(
+                packets.status == ST_ACTIVE)
     return packets, tallies, fates
 
 
@@ -1013,6 +1047,75 @@ def launch_packets(model: McModel, gen: torch.Generator, lam, en, minw,
                    status=status.to(torch.int32),
                    e_count=torch.zeros(B, dtype=torch.int32, device=dev),
                    rs0=rs[0] | 1, rs1=rs[1], rs2=rs[2], rs3=rs[3])
+
+
+EDGE_VZ = (-1e-3, -3e-4, -1e-4, -3e-5)   # grazing descents
+
+
+def edge_lanes(ws: WalkSetup, n_cells: int = 4, seed: int = 0):
+    """Hand-built lanes that the JAX walk never ends, on ws's grid:
+    - "grazing": on the bottom face of each of the first n_cells cells
+      above the midplane, mid-radius, descending at the slopes EDGE_VZ
+      (it lands back on the face after every crossing);
+    - "corner": one interior lane per cell for the same cells, aimed at
+      a corner of its cell in the x-z plane so that f32 roundoff rejects
+      both surfaces of the corner (no exit; the relocation nudge leaves
+      an interior point where it is), found by a search over points
+      drawn from a numpy seed.
+    A visible wavelength (no MRW) and tau = 1e30 (no encounter).  Returns
+    (Packets on ws.device, list of kinds)."""
+    cm = ws.cellmat.cpu()
+    rmin, rmax, zmin = cm[:, 0], cm[:, 1], cm[:, 2]
+    gi = ws.gi._replace(**{f: getattr(ws.gi, f).cpu() for f in
+                           ("r_edges", "z_edges", "cell_of", "n_z", "r_lut",
+                            "r_lut_pack", "zc_pack")
+                           if getattr(ws.gi, f) is not None})
+    upper = torch.nonzero(zmin > 0.0).flatten()[:n_cells].tolist()
+    rng = np.random.default_rng(seed)
+    rows, kinds = [], []
+    for ci in upper:
+        r = float((rmin[ci] + rmax[ci]) / 2)
+        for vz in EDGE_VZ:
+            rows.append((r, float(zmin[ci]), np.sqrt(1.0 - vz * vz), vz, ci))
+            kinds.append("grazing")
+    N = 16384
+    zero = torch.zeros(N, dtype=F)
+    one = torch.ones(N, dtype=F)
+    for ci in upper:
+        lo = cm[ci, :4].double().numpy()
+        for cr, cz in ((lo[1], lo[3]), (lo[0], lo[3]), (lo[1], lo[2]),
+                       (lo[0], lo[2])):
+            # aimed in f64, then rounded: f32 roundoff of the exit test
+            # decides whether the corner's surfaces are hit
+            px = lo[0] + rng.uniform(0.2, 0.8, N) * (lo[1] - lo[0])
+            pz = lo[2] + rng.uniform(0.2, 0.8, N) * (lo[3] - lo[2])
+            dx, dz = cr - px, cz - pz
+            nrm = np.sqrt(dx * dx + dz * dz)
+            px, pz, vx, vz = (torch.as_tensor(a, dtype=F) for a in
+                              (px, pz, dx / nrm, dz / nrm))
+            _, _, _, found = geometry.ray_cell_exit_mirror(
+                px, zero, pz, vx, zero, vz, *(one * float(v) for v in lo))
+            ok = ~found & (geometry.locate(gi, px * px, pz) == ci)
+            if bool(ok.any()):
+                i = int(torch.nonzero(ok)[0])
+                rows.append((float(px[i]), float(pz[i]), float(vx[i]),
+                             float(vz[i]), ci))
+                kinds.append("corner")
+                break
+    x, z, vx, vz, cell = (np.array(v) for v in zip(*rows))
+    B = len(rows)
+    dev = ws.device
+
+    def t(a, dtype=F):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    zf = t(np.zeros(B))
+    zi = t(np.zeros(B), torch.int32)
+    words = [t(np.full(B, w), torch.int32) for w in (12345, 678, 91011, 1213)]
+    return Packets(x=t(x), y=zf, z=t(z), vx=t(vx), vy=zf.clone(), vz=t(vz),
+                   lam=t(np.full(B, 5000.0)), en=t(np.ones(B)),
+                   cell=t(cell, torch.int32), tau=t(np.full(B, 1e30)),
+                   status=zi, e_count=zi.clone(), rs0=words[0],
+                   rs1=words[1], rs2=words[2], rs3=words[3]), kinds
 
 
 def update_tdust(tab: optics.McTables, cells: McCells,

@@ -12,8 +12,8 @@ Tolerances on the card: f32 roundoff of a 512-wide factorization whose
 kernel sums in another order (FMA, shuffles) than the plain version,
 <= 1e-4 relative to max(|ref|, 1) per lane; the f64-refined Newton solve
 at 1e-8, the bar of tests/test_blocklu.py:107-132.  K3 against its
-plain version: status and cell agree on >= 99% of lanes after 16 steps
-(libm ulps and atomics reorder a few threshold decisions), the RNG words
+plain version: status and cell agree on >= 99% of lanes (libm ulps and
+atomics reorder a few threshold decisions), the RNG words
 are equal on live agreeing lanes, the tally totals within 1e-3, and on
 the agreeing lanes every tally bin within 1e-4 of its channel's largest;
 K4: the collector totals within 1e-5 (f32 atomics in another order).
@@ -252,11 +252,22 @@ def _totals_rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+# (lanes, steps, use_mrw, save_counts): the options at 4096 lanes; the
+# persistent grid at one lane, at 127 and 129 lanes (a few warps, one
+# ragged) and at the full batch width, at 1 and 64 steps (a lane handed
+# on at every step, and lanes dying inside a chunk)
+MC_CASES = [(4096, 16, True, True), (4096, 16, True, False),
+            (4096, 16, False, True), (4096, 16, False, False),
+            (1, 1, True, True), (1, 64, True, True), (127, 64, True, True),
+            (129, 1, True, True), (129, 64, True, True),
+            (262144, 1, True, True), (262144, 64, True, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_mrw", [True, False])
-@pytest.mark.parametrize("save_counts", [True, False])
-def test_mc_kernels_match_plain_on_card(cuda_device, use_mrw, save_counts):
-    m, model, pk = _mc_setup(cuda_device)
+@pytest.mark.parametrize("B,steps,use_mrw,save_counts", MC_CASES)
+def test_mc_kernels_match_plain_on_card(cuda_device, B, steps, use_mrw,
+                                        save_counts):
+    m, model, pk = _mc_setup(cuda_device, n_packets=B)
     ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
     nlam = len(m.tab.lam)
     tk = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5, device=cuda_device)
@@ -264,8 +275,8 @@ def test_mc_kernels_match_plain_on_card(cuda_device, use_mrw, save_counts):
     pk_k, pk_p = pk.clone(), pk.clone()
     kw = dict(use_mrw=use_mrw, save_counts=save_counts, save_dir=True)
     kernels.reset_launches()
-    na_k = int(kernels.mc_walk(ws, pk_k, tk, 16, **kw))
-    na_p = int(mcrt._walk_plain(ws, pk_p, tp, 16, **kw))
+    na_k = int(kernels.mc_walk(ws, pk_k, tk, steps, **kw))
+    na_p = int(mcrt._walk_plain(ws, pk_p, tp, steps, **kw))
     torch.cuda.synchronize()
     assert kernels.mc_walk.launches == 1
     agree = (pk_k.status == pk_p.status) & (pk_k.cell == pk_p.cell) \
@@ -289,8 +300,8 @@ def test_mc_kernels_match_plain_on_card(cuda_device, use_mrw, save_counts):
                                   device=cuda_device)
         sp = mcrt.McTallies.zeros(m.grid.n_cells, nlam, 1, 5,
                                   device=cuda_device)
-        kernels.mc_walk(ws, sub.clone(), sk, 16, **kw)
-        mcrt._walk_plain(ws, sub.clone(), sp, 16, **kw)
+        kernels.mc_walk(ws, sub.clone(), sk, steps, **kw)
+        mcrt._walk_plain(ws, sub.clone(), sp, steps, **kw)
         torch.cuda.synchronize()
     for f in fields:
         a, b = getattr(sk, f), getattr(sp, f)
@@ -308,6 +319,50 @@ def test_mc_kernels_match_plain_on_card(cuda_device, use_mrw, save_counts):
 
 
 @pytest.mark.cuda
+def test_edge_lanes_end_on_card_as_in_plain_walk(cuda_device):
+    """The hand-built lanes that the JAX walk never ends (mcrt.edge_lanes)
+    through K3, one step a launch: each leaves its cell or ends within 8
+    steps, with the status, cell and e_count of the plain walk."""
+    m, model, _ = _mc_setup(cuda_device, n_packets=1)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    edge, kinds = mcrt.edge_lanes(ws)
+    assert "grazing" in kinds and "corner" in kinds
+    c0 = edge.cell.clone()
+    out = []
+    for walk in (kernels.mc_walk, mcrt._walk_plain):
+        pk = edge.clone()
+        tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                                  device=cuda_device)
+        gone = torch.zeros_like(c0, dtype=torch.bool)
+        for _ in range(8):
+            walk(ws, pk, tl, 1)
+            gone |= (pk.cell != c0) | (pk.status != mcrt.ST_ACTIVE)
+        assert bool(gone.all()), walk
+        out.append(pk)
+    for f in ("status", "cell", "e_count"):
+        assert torch.equal(getattr(out[0], f), getattr(out[1], f)), f
+
+
+@pytest.mark.cuda
+def test_walk_plan_on_card(cuda_device):
+    """K3's launch: a persistent grid of K3_MIN_BLOCKS or more CTAs per
+    SM at full width, one CTA for a few lanes, and no local memory beyond
+    the 32-byte frame of sincosf's slow-path argument reduction."""
+    m, model, pk = _mc_setup(cuda_device, n_packets=262144)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                              device=cuda_device)
+    plan = kernels.walk_plan(kernels.walk_args(ws, pk, tl, 64)[0])
+    assert plan["blocks_per_sm"] >= 2
+    assert plan["grid"] == plan["blocks_per_sm"] * plan["sms"]
+    assert plan["grid"] * plan["threads"] < 262144
+    assert plan["local_bytes"] <= 32
+    few = kernels.walk_plan(kernels.walk_args(ws, pk.take(slice(0, 129)),
+                                              tl, 64)[0])
+    assert few["grid"] == 1
+
+
+@pytest.mark.cuda
 def test_mc_kernels_reject_bad_arguments_on_card(cuda_device):
     m, model, pk = _mc_setup(cuda_device, n_packets=64)
     ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
@@ -317,6 +372,8 @@ def test_mc_kernels_reject_bad_arguments_on_card(cuda_device):
         kernels.mc_walk(ws, pk._replace(x=pk.x.double()), tl, 4)
     with pytest.raises(ValueError):
         kernels.mc_walk(ws, pk, tl._replace(flux=tl.flux[:, :-1]), 4)
+    with pytest.raises(ValueError):
+        kernels.mc_walk(ws, pk, tl, 0)
     ws.gi = ws.gi._replace(r_lut_pack=None)
     with pytest.raises(ValueError):
         kernels.mc_walk(ws, pk, tl, 4)

@@ -195,6 +195,66 @@ def test_walk_matches_jax(case, steps, use_mrw, request):
         assert float(np.asarray(jtl.mrw_path).sum()) > 0
 
 
+@pytest.mark.parametrize("kind", ["grazing", "corner"])
+def test_edge_lanes_leave_their_cell_or_end(kind, disk):
+    """The lanes that the JAX walk never ends (ROADMAP.md §3, repaired in
+    the port): a grazing descent onto a bottom face must cross into the
+    cell below, and a lane aimed at its cell's corner (no exit, a nudge
+    that leaves it in place) must end as premature, within 8 steps."""
+    model, _, _ = disk
+    ws = tmcrt.WalkSetup(torch_model(model, "cpu"), NQ)
+    pk, kinds = tmcrt.edge_lanes(ws)
+    sel = torch.as_tensor([k == kind for k in kinds])
+    assert int(sel.sum()) >= 2
+    pk = pk.take(sel)
+    c0 = pk.cell.clone()
+    n, nlam = ws.n_cells, ws.nlam
+    tl = tmcrt.McTallies.zeros(n, nlam, ws.n_dust, 5, device="cpu")
+    gone = torch.zeros(len(c0), dtype=torch.bool)
+    for _ in range(8):
+        tmcrt._walk_plain(ws, pk, tl, 1)
+        gone |= (pk.cell != c0) | (pk.status != tmcrt.ST_ACTIVE)
+    assert bool(gone.all()), (pk.cell, pk.status)
+    if kind == "grazing":
+        assert bool((pk.cell != c0).all())
+    else:
+        assert bool((pk.status == tmcrt.ST_PREMATURE).all())
+
+
+def test_en_gain_is_zero_in_dust_free_cells(disk):
+    """_en_gain_from_flux on a model with dust-free cells (d2h = 0): finite
+    everywhere, 0 there, and every other cell bitwise as in the model
+    where they hold dust.  The JAX package gives NaN in those cells."""
+    model, _, _ = disk
+    n, nlam = model.cells.rmin.shape[0], len(model.tab.lam)
+    free = np.array([3, 17, n - 1])
+    cells = model.cells._replace(
+        d2h=np.asarray(model.cells.d2h).copy(),
+        rho_dust=np.asarray(model.cells.rho_dust).copy())
+    cells.d2h[free] = 0.0
+    cells.rho_dust[:, free] = 0.0
+    dfree = model._replace(cells=cells)
+    rng = np.random.default_rng(4)
+    flux = 10 ** rng.uniform(-3, 3, (n, nlam))
+    mrw = 10 ** rng.uniform(-3, 3, (1, n))
+
+    def gain(m):
+        tl = tmcrt.McTallies.zeros(n, nlam, 1, 5, device="cpu")._replace(
+            flux=torch.as_tensor(flux, dtype=torch.float32),
+            en_gain_mrw=torch.as_tensor(mrw, dtype=torch.float32))
+        return tmcrt._en_gain_from_flux(torch_model(m, "cpu"), tl).en_gain
+    got, ref = gain(dfree), gain(model)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, free] == 0.0).all())
+    other = np.setdiff1d(np.arange(n), free)
+    assert torch.equal(got[:, other], ref[:, other])
+    assert bool(torch.isfinite(ref).all())
+    jt = jmcrt.McTallies.zeros(n, nlam, 1, 5)._replace(
+        flux=jnp.asarray(flux, jnp.float32))
+    jg = np.asarray(jmcrt._en_gain_from_flux(dfree, jt).en_gain)
+    assert not np.isfinite(jg[:, free]).any()
+
+
 def test_thin_absorption_on_the_port():
     """tests/test_mcrt.py::test_mc_optically_thin_absorption through the
     port's launch_packets -> mc_pass, and the same fraction as JAX within
