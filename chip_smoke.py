@@ -45,22 +45,35 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      and on the agreeing lanes every bin of every tally channel the walk
      writes within 1e-4 of the channel's largest bin; CUDA-event times of
      the chunk (plain, kernel, kernel, plain, each an event pair around one
-     call; between the kernel's, its device time with five chunks at a
-     time queued behind a spin kernel, without the wrapper's host time);
-     K3's launch (registers,
+     call of a launch object built once, kernels.WalkLaunch, on a new
+     Packets object; between the kernel's, its device time with five
+     chunks at a time queued behind a spin kernel, and the host's time to
+     enqueue a call, through the launch object and through the one-call
+     function kernels.mc_walk); K3's launch (registers,
      local bytes, CTAs per SM, grid, shared memory and the tables staged
      in it); and the hand-built lanes that the JAX walk never ends
      (mcrt.edge_lanes: grazing descents onto a bottom face, lanes aimed at
      a cell corner) through K3 and the plain walk, 8 steps: each must
      leave its cell or end, the same way in both;
   8. kernel K4 (the terminal tally fold) against its plain version on the
-     lanes phase 7 retired: collector bins within 1e-5 of the largest;
-     times as in phase 7;
+     lanes phase 7 walked (B=262144) and on 4096 of them as a compaction
+     tier holds them (the last quarter padding): every bin of the
+     collector, the image-plane bins and the water deposit within 1e-5 of
+     its array's largest, and K4's count of lanes per status code equal to
+     the plain fold's and to mcrt.packet_fates; at both sizes the times as
+     in phase 7 (through kernels.FoldLaunch), K4's launch (grid, CTAs
+     per SM, registers), and its bound on two bases: the bytes the fold needs
+     (the status of every lane, the eight fields of escaped lanes, cell
+     and en of water-destroyed ones, the touched bins) and, as the
+     earlier versions of this script did, all ten lane fields of every
+     lane;
   9. the slice: DiskModel(cfg, device="cuda").prepare() and
      run_mc(n_passes=2, nph=1_000_000) on that disk (streamed pass, batch
      262144, refill and compaction tail); per pass the wall time,
      packets/s, chunks, refills, K3/K4 launches, the tail of <= 64 live
-     lanes and its share of the pass, fates and Tdust range; every packet
+     lanes and its share of the pass, fates and Tdust range, the host
+     seconds spent in K3's and K4's launch objects and the reads back to
+     the host by the pass loop; every packet
      counted, no lane still active at the 100000-step cap (those that are
      get printed with their cell's bounds), premature <= 1e-3, Tdust
      finite inside [TdustMin, TdustMax], flux finite and >= 0, K3/K4
@@ -70,15 +83,17 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      the same cells and generator seed: median |dTdust|/Tdust < 3% over
      active cells, total absorbed energy in active cells within 2%, and
      en_gain finite in every cell.
-Phases 7 and 8 also print the bounds of K3 and K4 (bytes: the packet
-state read and written once, the tables read once, the tally bins the run
-touched read and written once); no single PyTorch call computes either.
+Phases 7 and 8 also print the bounds of K3 and K4 (bytes: for K3 the
+packet state read and written once, the tables read once, the tally bins
+the run touched read and written once; for K4 the two bases above); no
+single PyTorch call computes either.
 Phases 5-6 run to T_MAX (1e2 yr) to leave time for the MC phases.
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
 for each TPU probe kernel that K3 or K4 replaces, each with its time,
 bound, plain and library times and launches; K3/K4 rows add device_ms,
 the queued device time) and the card's nvidia-smi
-line; the last line is {"ok": true, "device": {...}}.
+line; the last line is {"ok": true, "device": {...}}.  Where a pass's
+host time goes: mc_pass_profile.py (run by hand).
 """
 
 import json
@@ -119,7 +134,9 @@ PROBES = [
     ("P3-1", "tools/probe_pallas_gather.py:50", "mc_walk"),
     ("P3-2", "tools/probe_pallas_gather.py:74", "mc_walk"),
     ("P3-3", "tools/probe_pallas_gather.py:98", "mc_walk"),
-    ("P3-4", "tools/probe_pallas_gather.py:122", "mc_walk"),
+    # a scatter-add of per-lane weights into a table in one pass over a
+    # batch, outside any walk step: what K4 does, not K3's in-step tallies
+    ("P3-4", "tools/probe_pallas_gather.py:122", "fold_terminal"),
     ("P3-5", "tools/probe_pallas_gather.py:163", "mc_walk"),
     ("P3-6", "tools/probe_pallas_gather.py:194", "mc_walk"),
 ]
@@ -736,32 +753,52 @@ def check_walk(m, dev):
             walk(ws, pk, tl, MC_STEPS, **kw)
         return fn
 
-    def kernel_chunks(reps):
-        jobs = [(pk0.clone(), zeros()) for _ in range(reps)]
-        return queued_ms([
-            lambda pk=pk, tl=tl: kernels.mc_walk(ws, pk, tl, MC_STEPS, **kw)
-            for pk, tl in jobs])
+    # the pass's way: a launch object built once for the tallies, called
+    # on a new Packets object each time (its checks run, as after a
+    # refill or a compaction)
+    tl_q = zeros()
+    launch = kernels.WalkLaunch(ws, tl_q, **kw)
+
+    def launched(e0):
+        pk = pk0.clone()
+        torch.cuda.synchronize()
+        e0.record()
+        launch(pk, tl_q, MC_STEPS)
+
+    def kernel_chunks(reps, one_call=False):
+        jobs = [pk0.clone() for _ in range(reps)]
+        if one_call:
+            return queued_ms([
+                lambda pk=pk: kernels.mc_walk(ws, pk, tl_q, MC_STEPS, **kw)
+                for pk in jobs])
+        return queued_ms([lambda pk=pk: launch(pk, tl_q, MC_STEPS)
+                          for pk in jobs])
 
     # two times of the kernel: an event pair around one call (the method
-    # of every earlier run, wrapper host time included) and the device's
-    # alone, with calls queued behind a spin kernel
+    # of every earlier run, host time of the launch included) and the
+    # device's alone, with calls queued behind a spin kernel; the host's
+    # time to enqueue a call through the launch object and through the
+    # one-call function kernels.mc_walk (which builds one per call)
     p_a = event_ms(run(mcrt._walk_plain), 2)
-    k_a = event_ms(run(kernels.mc_walk), 5)
+    k_a = event_ms(launched, 5)
     (q_a, h_a), (q_b, h_b) = kernel_chunks(5), kernel_chunks(5)
-    k_b = event_ms(run(kernels.mc_walk), 5)
+    _, h_one = kernel_chunks(5, one_call=True)
+    k_b = event_ms(launched, 5)
     p_b = event_ms(run(mcrt._walk_plain), 2)
     say(f"phase 7 times, one {MC_STEPS}-step chunk at B={MC_BATCH}: kernel "
         f"{k_a:.4f}/{k_b:.4f} ms (events around one call), "
         f"{q_a:.4f}/{q_b:.4f} ms on the device (queued; host enqueue "
-        f"{h_a:.3f}/{h_b:.3f} ms a call), plain {p_a:.1f}/{p_b:.1f} ms; "
+        f"{h_a:.4f}/{h_b:.4f} ms a call through the launch object, "
+        f"{h_one:.4f} ms through kernels.mc_walk), plain "
+        f"{p_a:.1f}/{p_b:.1f} ms; "
         f"bound {bound_ms:.4f} ms by bytes (packets {pk_bytes}, tables "
         f"{tab_bytes}, touched tally bins {tal_bytes} B), kernel at "
         f"{bound_ms / ((k_a + k_b) / 2):.2%} of it by the one-call time, "
         f"{bound_ms / ((q_a + q_b) / 2):.2%} by the device time; library "
         f"call: none")
     # K3's launch: registers, shared memory, the persistent grid
-    args, _ = kernels.walk_args(ws, pk0.clone(), zeros(), MC_STEPS, **kw)
-    plan = kernels.walk_plan(args)
+    launch.prepare(pk0.clone(), MC_STEPS)
+    plan = launch.plan()
     say(f"phase 7 K3 launch: {plan['regs']} registers and "
         f"{plan['local_bytes']} B of local memory a thread, "
         f"{plan['threads']} threads a CTA, {plan['blocks_per_sm']} CTAs per "
@@ -800,63 +837,138 @@ def check_walk(m, dev):
         raise Fail("phase 7: an edge lane neither left its cell nor ended")
     return dict(model=model, pk=pk_k, zeros=zeros, err=err,
                 ms=(k_a + k_b) / 2, device_ms=(q_a + q_b) / 2,
-                plain_ms=(p_a + p_b) / 2, bound_ms=bound_ms)
+                host_ms=(h_a + h_b) / 2, plain_ms=(p_a + p_b) / 2,
+                bound_ms=bound_ms)
+
+
+MC_TIER = 4096            # phase 8: a compaction tier of the pass
+
+
+def fold_tier(pk):
+    """MC_TIER of phase 7's lanes as a compaction tier holds them: the
+    last quarter ST_PADDING."""
+    from rac2d_torch.ops import mcrt
+    sub = pk.take(slice(0, MC_TIER)).clone()
+    sub.status[3 * MC_TIER // 4:] = mcrt.ST_PADDING
+    return sub
+
+
+def fold_bytes(pk, tl):
+    """K4's bytes on two bases: (what the fold needs: the status of every
+    lane, the eight fields of escaped lanes, cell and en of water-destroyed
+    ones, the fate counter and the bins it touched, read and written
+    once; the earlier basis, kept for its series: the ten lane fields of
+    every lane and the touched bins)."""
+    from rac2d_torch.ops import kernels, mcrt
+    B = pk.x.shape[0]
+    n_esc = int((pk.status == mcrt.ST_ESCAPED).sum())
+    n_wat = int((pk.status == mcrt.ST_DESTR_WATER).sum())
+    bins = touched_bytes(tl, ("collector", "collector_img", "ab_en_water"))
+    need = 4 * B + 32 * n_esc + 8 * n_wat + 2 * 8 * mcrt.N_CODES + bins
+    return need, nbytes(*(getattr(pk, f) for f in kernels._FOLD_PK)) + bins
 
 
 def check_fold(model, pk, zeros, **_):
-    """Phase 8: K4 against _fold_terminal_plain on phase 7's lanes."""
+    """Phase 8: K4 against _fold_terminal_plain on phase 7's lanes and on
+    a compaction tier of them; its fate counts; its times and bounds."""
     from rac2d_torch.ops import kernels, mcrt
     t0 = time.time()
-    tk, tp = zeros(), zeros()
-    kernels.fold_terminal(model, pk, tk, 5)
-    mcrt._fold_terminal_plain(model, pk, tp, 5)
-    torch.cuda.synchronize()
-    rels, err = {}, 0.0
-    for f in ("collector", "collector_img", "ab_en_water"):
-        d = (getattr(tk, f) - getattr(tp, f)).abs().max()
-        err = max(err, float(d))
-        rels[f] = float(d / getattr(tp, f).abs().max().clamp_min(1e-30))
-    n_esc = int((pk.status == mcrt.ST_ESCAPED).sum())
-    n_wat = int((pk.status == mcrt.ST_DESTR_WATER).sum())
-    say(f"phase 8 K4 fold: {pk.x.shape[0]} lanes, {n_esc} escaped, {n_wat} "
-        f"water-destroyed; max |diff| / max |plain|: " + ", ".join(
-            f"{k} {v:.2e}" for k, v in rels.items()) + " (tol 1e-5)")
+    dev = pk.x.device
+    out, err = {}, 0.0
+    for name, lanes in (("full", pk), ("tier", fold_tier(pk))):
+        tk, tp = zeros(), zeros()
+        fk = torch.zeros(mcrt.N_CODES, dtype=torch.int64, device=dev)
+        fp = torch.zeros_like(fk)
+        kernels.fold_terminal(model, lanes, tk, 5, fk)
+        mcrt._fold_terminal_plain(model, lanes, tp, 5, fp)
+        torch.cuda.synchronize()
+        rels = {}
+        for f in ("collector", "collector_img", "ab_en_water"):
+            d = (getattr(tk, f) - getattr(tp, f)).abs().max()
+            err = max(err, float(d))
+            rels[f] = float(d / getattr(tp, f).abs().max().clamp_min(1e-30))
+        want = mcrt.packet_fates(lanes.status)
+        got = mcrt.fates_of_counts(fk.tolist())
+        exact = got == want and torch.equal(fk, fp)
+        n_esc = int((lanes.status == mcrt.ST_ESCAPED).sum())
+        n_wat = int((lanes.status == mcrt.ST_DESTR_WATER).sum())
+        n_pad = int((lanes.status == mcrt.ST_PADDING).sum())
+        say(f"phase 8 K4 fold ({name}): {lanes.x.shape[0]} lanes, {n_esc} "
+            f"escaped, {n_wat} water-destroyed, {n_pad} padding; max |diff| "
+            f"/ max |plain|: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rels.items()) + " (tol 1e-5); "
+            f"fate counts {fk.tolist()} equal to packet_fates {want} and the "
+            f"plain fold's: {exact}")
+        if not max(rels.values()) <= 1e-5:
+            raise Fail(f"phase 8: K4 disagrees with its plain version "
+                       f"({name})")
+        if not exact:
+            raise Fail(f"phase 8: K4's fate counts are wrong ({name})")
+        out[name] = (lanes, tk)
 
-    def run(fold):
-        def fn(e0):
-            tl = zeros()
+    def timings(lanes):
+        """One-call, device and host times of K4 through a launch object
+        built once (a new Packets object each call), and of the plain
+        fold."""
+        tl = zeros()
+        fates = torch.zeros(mcrt.N_CODES, dtype=torch.int64, device=dev)
+        launch = kernels.FoldLaunch(model, tl, 5)
+
+        def one(e0):
+            job = lanes._replace(x=lanes.x)
             torch.cuda.synchronize()
             e0.record()
-            fold(model, pk, tl, 5)
-        return fn
+            launch(job, tl, fates)
 
-    def kernel_folds(reps):
-        tl = zeros()
-        return queued_ms([lambda: kernels.fold_terminal(model, pk, tl, 5)]
-                         * reps)
+        def plain(e0):
+            t = zeros()
+            torch.cuda.synchronize()
+            e0.record()
+            mcrt._fold_terminal_plain(model, lanes, t, 5)
 
-    p_a = event_ms(run(mcrt._fold_terminal_plain), 5)
-    k_a = event_ms(run(kernels.fold_terminal), 20)
-    (q_a, h_a), (q_b, h_b) = kernel_folds(20), kernel_folds(20)
-    k_b = event_ms(run(kernels.fold_terminal), 20)
-    p_b = event_ms(run(mcrt._fold_terminal_plain), 5)
-    # K4's bound: the ten lane fields it reads once, the bins it touched
-    # read and written once
-    by = nbytes(*(getattr(pk, f) for f in ("x", "y", "z", "vx", "vy", "vz",
-                                           "lam", "en", "cell", "status"))) \
-        + touched_bytes(tk, ("collector", "collector_img", "ab_en_water"))
-    bound_ms = by / HBM_BPS * 1e3
-    say(f"phase 8 times at B={pk.x.shape[0]}: kernel {k_a:.4f}/{k_b:.4f} "
-        f"ms (events around one call), {q_a:.4f}/{q_b:.4f} ms on the device "
-        f"(queued; host enqueue {h_a:.3f}/{h_b:.3f} ms a call), plain "
-        f"{p_a:.3f}/{p_b:.3f} ms; bound {bound_ms:.5f} ms by bytes ({by} B),"
-        f" kernel at {bound_ms / ((k_a + k_b) / 2):.2%} of it by the "
-        f"one-call time, {bound_ms / ((q_a + q_b) / 2):.2%} by the device "
-        f"time; library call: none; {time.time() - t0:.1f} s")
-    if not max(rels.values()) <= 1e-5:
-        raise Fail("phase 8: K4 disagrees with its plain version")
-    return dict(err=err, ms=(k_a + k_b) / 2, device_ms=(q_a + q_b) / 2,
-                plain_ms=(p_a + p_b) / 2, bound_ms=bound_ms)
+        def queued(reps):
+            jobs = [lanes._replace(x=lanes.x) for _ in range(reps)]
+            return queued_ms([lambda j=j: launch(j, tl, fates)
+                              for j in jobs])
+
+        p_a = event_ms(plain, 5)
+        k_a = event_ms(one, 20)
+        (q_a, h_a), (q_b, h_b) = queued(20), queued(20)
+        k_b = event_ms(one, 20)
+        p_b = event_ms(plain, 5)
+        _, h_one = queued_ms([lambda: kernels.fold_terminal(
+            model, lanes._replace(x=lanes.x), tl, 5, fates)] * 20)
+        launch.prepare(lanes, fates)
+        return dict(ms=(k_a + k_b) / 2, k=(k_a, k_b), q=(q_a, q_b),
+                    device_ms=(q_a + q_b) / 2, host_ms=(h_a + h_b) / 2,
+                    h=(h_a, h_b), h_one=h_one, plain=(p_a, p_b),
+                    plain_ms=(p_a + p_b) / 2, plan=launch.plan())
+
+    res = {}
+    for name, (lanes, tk) in out.items():
+        t = timings(lanes)
+        need, old = fold_bytes(lanes, tk)
+        b_ms, b_old = need / HBM_BPS * 1e3, old / HBM_BPS * 1e3
+        say(f"phase 8 times ({name}, B={lanes.x.shape[0]}): kernel "
+            f"{t['k'][0]:.4f}/{t['k'][1]:.4f} ms (events around one call), "
+            f"{t['q'][0]:.4f}/{t['q'][1]:.4f} ms on the device (queued; host "
+            f"enqueue {t['h'][0]:.4f}/{t['h'][1]:.4f} ms a call through the "
+            f"launch object, {t['h_one']:.4f} ms through "
+            f"kernels.fold_terminal), plain {t['plain'][0]:.3f}/"
+            f"{t['plain'][1]:.3f} ms; bound by bytes {b_ms:.5f} ms ({need} B "
+            f"the fold needs; kernel at {b_ms / t['ms']:.2%} of it by the "
+            f"one-call time, {b_ms / t['device_ms']:.2%} by the device time)"
+            f", {b_old:.5f} ms ({old} B, all ten lane fields, the earlier "
+            f"basis; {b_old / t['ms']:.2%} and {b_old / t['device_ms']:.2%}); "
+            f"library call: none")
+        say(f"phase 8 K4 launch ({name}): {t['plan']}")
+        res[name] = dict(t, bound_ms=b_ms, bound_all_fields_ms=b_old)
+    say(f"phase 8 done: {time.time() - t0:.1f} s")
+    full = res["full"]
+    return dict(err=err, ms=full["ms"], device_ms=full["device_ms"],
+                host_ms=full["host_ms"], plain_ms=full["plain_ms"],
+                bound_ms=full["bound_ms"],
+                bound_all_fields_ms=full["bound_all_fields_ms"])
 
 
 def run_mc_slice(m):
@@ -879,6 +991,13 @@ def run_mc_slice(m):
             f"{st['tail_s']:.3f} s, {st['tail_s'] / st['wall_s']:.1%} of the "
             f"pass; fates {f}; Tdust over active cells "
             f"{st['tdust_active'][0]:.2f}..{st['tdust_active'][1]:.2f} K")
+        say(f"phase 9 pass {ip + 1} host: K3's launch object "
+            f"{st['k3_host_s'] * 1e3:.3f} ms over {st['k3_launches']} calls, "
+            f"K4's {st['k4_host_s'] * 1e3:.3f} ms over {st['k4_launches']} "
+            f"calls, together {(st['k3_host_s'] + st['k4_host_s']) * 1e3:.3f}"
+            f" ms; reads back to the host by the pass loop: "
+            f"{st['host_reads']} (a live count a chunk, the fate counts "
+            f"once)")
         if sum(f.values()) != st["packets"]:
             raise Fail(f"phase 9: pass {ip + 1} did not count every packet")
         # a packet still walking at the pass's step cap (100000) stays
@@ -1012,9 +1131,11 @@ def main():
                          "source": MC_SOURCE, "replaces": replaces,
                          "launches": n, "max_abs_err": r["err"],
                          "ms": r["ms"], "device_ms": r["device_ms"],
-                         "plain_ms": r["plain_ms"],
+                         "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                         "library_ms": None})
+                         "library_ms": None,
+                         **({"bound_all_fields_ms": r["bound_all_fields_ms"]}
+                            if "bound_all_fields_ms" in r else {})})
     except Fail as e:
         say(f"FAIL {e}")
         return 1

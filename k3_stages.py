@@ -96,20 +96,20 @@ def main():
                                     device=dev)
 
     def run(clk=None):
-        """K3's arguments on fresh packets and tallies; the caller keeps
-        the tensors alive until the launch has run."""
+        """K3's launch object, prepared on fresh packets and tallies; the
+        caller keeps the tensors alive until the launch has run."""
         pk, tl = pk0.clone(), zeros()
-        args, cnt = kernels.walk_args(ws, pk, tl, cs.MC_STEPS,
-                                      stage_clk=clk, **kw)
-        return args, pk, cnt, tl
+        wl = kernels.WalkLaunch(ws, tl, stage_clk=clk, **kw)
+        wl.prepare(pk, cs.MC_STEPS)
+        return wl, pk, wl.counters, tl
 
-    def launch(lib, args):
+    def launch(lib, wl):
         stream = torch.cuda.current_stream().cuda_stream
-        kernels._launch(lib.rac2d_mc_walk, ctypes.addressof(args), stream)
+        kernels._launch(lib.rac2d_mc_walk, ctypes.addressof(wl.args), stream)
 
-    args, ref, cnt, _tl = run()
-    plan = kernels.walk_plan(args)
-    launch(lib, args)
+    wl, ref, cnt, _tl = run()
+    plan = wl.plan()
+    launch(lib, wl)
     torch.cuda.synchronize()
     sass = sass_counts(so)
     n_sass = {f: n for f, (n, _) in sass.items()}
@@ -141,8 +141,8 @@ def main():
     out.update(ms=[ms_a, ms_b], device_ms=[q_a, q_b], host_ms=[h_a, h_b])
 
     clk = torch.zeros(kernels.K3_STAGES, dtype=torch.int64, device=dev)
-    args, pk, _, _tl = run(clk)
-    launch(lib_st, args)
+    wl, pk, _, _tl = run(clk)
+    launch(lib_st, wl)
     torch.cuda.synchronize()
     agree = float(((pk.status == ref.status) & (pk.cell == ref.cell)
                    & (pk.e_count == ref.e_count)).float().mean())

@@ -17,8 +17,9 @@
 // one CUDA thread does per packet: indexed loads through the read-only
 // path, the step loop inside the kernel, xorshift128 in registers, and
 // atomicAdd into the tallies inside the step (no event log).  K4 computes
-// _fold_terminal (:832-897): the escape collector (P1-C's scatter shape),
-// the image-plane bins and the water deposit.
+// _fold_terminal (:832-897): the escape collector (the scatter-add of
+// P1-C and P3-4), the image-plane bins and the water deposit; it also
+// counts the lanes of each status code for the pass's fates.
 //
 // Semantics.  K3 computes what _mc_walk(..., finalize=False) computes for
 // max_steps steps, per lane, in the same f32 operation order (built with
@@ -57,10 +58,19 @@
 //   warp-aggregated tally atomics were not tried for a stage of 1%.  What
 //   stays idle (about a third) is the drain of the chunk's last lanes,
 //   each walking up to max_steps steps after the counter runs out.
-//   K4 is one pass over the batch: the collector [n_mu, nlam] is binned in
-//   a per-CTA shared-memory histogram and merged with global atomics; the
-//   image-plane bins and the water deposit take global atomics (few lanes
-//   are terminal with those fates).
+//   K4 moves little (a status per lane, eight fields per escaped lane:
+//   3.6 MB, 0.001 ms at 3.35 TB/s, at 262144 lanes after a 64-step
+//   chunk), so what bounds it is latency: a status load, then the escaped
+//   lanes' field loads, then precise libm math, then atomics, behind a
+//   launch.  Two things cost the most on the H100 (measured, PERF.md):
+//   same-address global atomics on the collector's few crowded bins and
+//   on the fate counters, and too few warps to hide the load-then-math
+//   chain (four lanes a thread measured slower than two).  So a
+//   thread takes two lanes (an int2 status load, a warp 64 lanes), its
+//   warp lists the escaped ones and takes them two a thread with all
+//   field loads issued first, the collector goes through a histogram in
+//   shared memory per CTA, the fate counts through shared memory, and the
+//   grid is sized from the device's SMs and the kernel's occupancy.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,8 +88,8 @@ struct WalkArgs {
   const float *cellmat, *tabmat, *lya_pair, *reemit_lam, *mrw_lnx,
       *r_lut_pack, *zc_pack;
   float *flux, *mrw_path, *phc, *en_gain_abso, *cr_count, *dir_flux;
-  int* n_active;
-  int* next_lane;
+  int* counters;   // [0] lanes still active after the launch, [1] the
+                   // next unwalked lane; zeroed by rac2d_mc_walk
   unsigned long long* stage_clk;   // [K3_STAGES], RAC2D_K3_STAGES builds
   int B, max_steps, n_cells, nlam, n_dust, C, K, nT, n_quantile, n_mrw,
       n_tlya, n_lut, ncol, max_nz, nmax_encounter, use_mrw, save_counts,
@@ -98,6 +108,7 @@ struct FoldArgs {
   const float *x, *y, *z, *vx, *vy, *vz, *lam, *en;
   const int *cell, *status;
   float *collector, *collector_img, *ab_en_water;
+  unsigned long long* fates;   // [N_CODES] lanes per status code, or null
   double seg_log0[3], seg_inv_d[3];
   double b_mid, b_lya, b_high;
   int B, nlam, n_mu, n_r, n_phi, n_cells;
@@ -117,6 +128,8 @@ constexpr int MAX_DUST = 4;
 constexpr int K3_THREADS = 384;
 constexpr int K3_MIN_BLOCKS = 2;
 constexpr int FOLD_THREADS = 256;
+constexpr int FOLD_V = 2;     // lanes a K4 thread takes at a time (an int2)
+constexpr int N_CODES = 6;    // status codes 0-5 that K4 counts
 constexpr float AU2CM = 1.49597871e13f;
 constexpr float C_CGS = 2.99792458e10f;
 constexpr float FL_BIG = 1e30f, MIN_LEN = 1e-30f, MIN_VZ = 1e-20f;
@@ -734,7 +747,7 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
       if (m == 0) break;
       const int leader = __ffs(m) - 1;
       int base = 0;
-      if ((int)lane == leader) base = atomicAdd(a.next_lane, __popc(m));
+      if ((int)lane == leader) base = atomicAdd(a.counters + 1, __popc(m));
       base = __shfl_sync(FULL, base, leader);
       if (need) {
         i = base + __popc(m & ((1u << lane) - 1u));
@@ -761,58 +774,146 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
   }
   // live-lane count: one atomic per warp
   const int s = __reduce_add_sync(FULL, n_alive);
-  if (lane == 0 && s) atomicAdd(a.n_active, s);
+  if (lane == 0 && s) atomicAdd(a.counters, s);
   sc.flush(a.stage_clk);
 }
 
+// One escaped lane: its image-plane bin takes en; returns its collector
+// bin imu * nlam + ilam.
+__device__ __forceinline__ int fold_escaped(const FoldArgs& a, float x,
+                                            float y, float z, float vx,
+                                            float vy, float vz, float lam,
+                                            float en) {
+  const int imu = clampi((int)(fabsf(vz) * (float)a.n_mu), 0, a.n_mu - 1);
+  const int ilam = clampi(lam_to_bin64(a, lam), 0, a.nlam - 1);
+  // image-plane bins: displacement orthogonal to the ray, in a frame
+  // with the ray as z axis (x-axis fallback near the pole)
+  const float dotp = x * vx + y * vy + z * vz;
+  const float rox = x - dotp * vx, roy = y - dotp * vy, roz = z - dotp * vz;
+  const bool degen = fabsf(vz) >= 0.99f;
+  const float uxn = sqrtf(fmaxf(vx * vx + vy * vy, 1e-30f));
+  const float ux_x = degen ? 1.f : -vy / uxn;
+  const float ux_y = degen ? 0.f : vx / uxn;
+  const float ux_z = 0.f;
+  const float uy_x = degen ? 0.f : vy * ux_z - vz * ux_y;
+  const float uy_y = degen ? 1.f : vz * ux_x - vx * ux_z;
+  const float uy_z = degen ? 0.f : vx * ux_y - vy * ux_x;
+  const float r_o_x = rox * ux_x + roy * ux_y + roz * ux_z;
+  const float r_o_y = rox * uy_x + roy * uy_y + roz * uy_z;
+  const float r_img = sqrtf(r_o_x * r_o_x + r_o_y * r_o_y);
+  const float phi_img = atan2f(r_o_y, r_o_x);
+  int ir = clampi((int)(logf(fmaxf(r_img, 1e-30f) / a.r0) / a.log_ratio *
+                        (float)(a.n_r - 1)) + 1,
+                  0, a.n_r - 1);
+  if (r_img < a.r0) ir = 0;
+  const int iphi = clampi(
+      (int)((phi_img + PI_F) / TWO_PI * (float)a.n_phi), 0, a.n_phi - 1);
+  const size_t flat =
+      ((size_t)((imu * a.n_r + ir) * a.n_phi + iphi)) * a.nlam + ilam;
+  atomicAdd(a.collector_img + flat, en);
+  return imu * a.nlam + ilam;
+}
+
+// K4.  Each warp takes 32 * FOLD_V consecutive lanes at a time (a
+// warp-uniform grid-stride loop).  A thread loads the statuses of its
+// FOLD_V lanes in one vector load, counts them per code, adds the water
+// deposits of its water-destroyed lanes (cell and en loaded first), and
+// the warp lists its escaped lanes in shared memory (ballot and prefix
+// count, no atomics).  Then the warp's threads take the list's lanes,
+// two each at a time: both lanes' eight field loads are issued before
+// any math, so the math runs once per escaped lane in converged warps,
+// with no barrier between warps.  The collector bins go to a histogram
+// in shared memory (escaped lanes crowd into few of its n_mu * nlam
+// bins, and global atomics on one address serialize), flushed with one
+// global atomic per non-zero bin at the CTA's end; the image-plane bins
+// and the water deposit take global atomics.  The lanes of each status
+// code are summed per warp, then per CTA in shared memory, and added
+// with one global atomic per CTA and code.
 __global__ void __launch_bounds__(FOLD_THREADS)
     fold_terminal_kernel(const FoldArgs a) {
   extern __shared__ float hist[];          // [n_mu * nlam]
+  __shared__ int esc_list[FOLD_THREADS * FOLD_V];
+  __shared__ unsigned long long cta_fates[N_CODES];
+  const unsigned FULL = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  int* wlist = esc_list + (threadIdx.x & ~31u) * FOLD_V;
   const int nbin = a.n_mu * a.nlam;
-  for (int k = threadIdx.x; k < nbin; k += blockDim.x) hist[k] = 0.f;
+  for (int k = threadIdx.x; k < nbin; k += FOLD_THREADS) hist[k] = 0.f;
+  if (threadIdx.x < N_CODES) cta_fates[threadIdx.x] = 0;
   __syncthreads();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.B;
-       i += gridDim.x * blockDim.x) {
-    const int st = a.status[i];
-    if (st == ST_DESTR_WATER) {
-      atomicAdd(a.ab_en_water + clampi(a.cell[i], 0, a.n_cells - 1), a.en[i]);
-      continue;
+  const bool vec = (reinterpret_cast<uintptr_t>(a.status) & 7u) == 0;
+  const int ngroups = (a.B + FOLD_V - 1) / FOLD_V;
+  int cnt[N_CODES];
+#pragma unroll
+  for (int c = 0; c < N_CODES; ++c) cnt[c] = 0;
+  for (int g0 = blockIdx.x * FOLD_THREADS + (threadIdx.x & ~31u);
+       g0 < ngroups; g0 += gridDim.x * FOLD_THREADS) {
+    const int i0 = (g0 + (int)lane) * FOLD_V;
+    int st[FOLD_V];
+    if (vec && i0 + FOLD_V <= a.B) {
+      const int2 s2 = __ldg(reinterpret_cast<const int2*>(a.status + i0));
+      st[0] = s2.x;
+      st[1] = s2.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < FOLD_V; ++k)
+        st[k] = i0 + k < a.B ? __ldg(a.status + i0 + k) : -1;
     }
-    if (st != ST_ESCAPED) continue;
-    const float x = a.x[i], y = a.y[i], z = a.z[i];
-    const float vx = a.vx[i], vy = a.vy[i], vz = a.vz[i];
-    const float en = a.en[i];
-    const int imu = clampi((int)(fabsf(vz) * (float)a.n_mu), 0, a.n_mu - 1);
-    const int ilam = clampi(lam_to_bin64(a, a.lam[i]), 0, a.nlam - 1);
-    atomicAdd(hist + imu * a.nlam + ilam, en);
-    // image-plane bins: displacement orthogonal to the ray, in a frame
-    // with the ray as z axis (x-axis fallback near the pole)
-    const float dotp = x * vx + y * vy + z * vz;
-    const float rox = x - dotp * vx, roy = y - dotp * vy, roz = z - dotp * vz;
-    const bool degen = fabsf(vz) >= 0.99f;
-    const float uxn = sqrtf(fmaxf(vx * vx + vy * vy, 1e-30f));
-    const float ux_x = degen ? 1.f : -vy / uxn;
-    const float ux_y = degen ? 0.f : vx / uxn;
-    const float ux_z = 0.f;
-    const float uy_x = degen ? 0.f : vy * ux_z - vz * ux_y;
-    const float uy_y = degen ? 1.f : vz * ux_x - vx * ux_z;
-    const float uy_z = degen ? 0.f : vx * ux_y - vy * ux_x;
-    const float r_o_x = rox * ux_x + roy * ux_y + roz * ux_z;
-    const float r_o_y = rox * uy_x + roy * uy_y + roz * uy_z;
-    const float r_img = sqrtf(r_o_x * r_o_x + r_o_y * r_o_y);
-    const float phi_img = atan2f(r_o_y, r_o_x);
-    int ir = clampi((int)(logf(fmaxf(r_img, 1e-30f) / a.r0) / a.log_ratio *
-                          (float)(a.n_r - 1)) + 1,
-                    0, a.n_r - 1);
-    if (r_img < a.r0) ir = 0;
-    const int iphi = clampi(
-        (int)((phi_img + PI_F) / TWO_PI * (float)a.n_phi), 0, a.n_phi - 1);
-    const size_t flat =
-        ((size_t)((imu * a.n_r + ir) * a.n_phi + iphi)) * a.nlam + ilam;
-    atomicAdd(a.collector_img + flat, en);
+    int wcell[FOLD_V];
+    float wen[FOLD_V];
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < FOLD_V; ++k) {
+#pragma unroll
+      for (int c = 0; c < N_CODES; ++c) cnt[c] += st[k] == c ? 1 : 0;
+      if (st[k] == ST_DESTR_WATER) {
+        wcell[k] = __ldg(a.cell + i0 + k);
+        wen[k] = __ldg(a.en + i0 + k);
+      }
+      const unsigned m = __ballot_sync(FULL, st[k] == ST_ESCAPED);
+      if (st[k] == ST_ESCAPED) wlist[n + __popc(m & lt)] = i0 + k;
+      n += __popc(m);
+    }
+#pragma unroll
+    for (int k = 0; k < FOLD_V; ++k)
+      if (st[k] == ST_DESTR_WATER)
+        atomicAdd(a.ab_en_water + clampi(wcell[k], 0, a.n_cells - 1),
+                  wen[k]);
+    __syncwarp();
+    for (int j = (int)lane; j < n; j += 64) {
+      const bool on[2] = {true, j + 32 < n};
+      float f[2][8];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!on[r]) continue;
+        const int i = wlist[j + 32 * r];
+        f[r][0] = __ldg(a.x + i); f[r][1] = __ldg(a.y + i);
+        f[r][2] = __ldg(a.z + i); f[r][3] = __ldg(a.vx + i);
+        f[r][4] = __ldg(a.vy + i); f[r][5] = __ldg(a.vz + i);
+        f[r][6] = __ldg(a.lam + i); f[r][7] = __ldg(a.en + i);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!on[r]) continue;
+        const int key = fold_escaped(a, f[r][0], f[r][1], f[r][2], f[r][3],
+                                     f[r][4], f[r][5], f[r][6], f[r][7]);
+        atomicAdd(hist + key, f[r][7]);
+      }
+    }
+    __syncwarp();
+  }
+  if (a.fates != nullptr) {
+#pragma unroll
+    for (int c = 0; c < N_CODES; ++c) {
+      const int s = __reduce_add_sync(FULL, cnt[c]);
+      if (lane == 0 && s) atomicAdd(cta_fates + c, (unsigned long long)s);
+    }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < nbin; k += blockDim.x)
+  if (a.fates != nullptr && threadIdx.x < N_CODES && cta_fates[threadIdx.x])
+    atomicAdd(a.fates + threadIdx.x, cta_fates[threadIdx.x]);
+  for (int k = threadIdx.x; k < nbin; k += FOLD_THREADS)
     if (hist[k] != 0.f) atomicAdd(a.collector + k, hist[k]);
 }
 
@@ -867,10 +968,13 @@ cudaError_t walk_plan(int B, WalkPlan* p) {
 
 }  // namespace
 
+// K3's launch: the counters zeroed on the stream, then the kernel.
 extern "C" int rac2d_mc_walk(const WalkArgs* a, cudaStream_t stream) {
+  cudaError_t e = cudaMemsetAsync(a->counters, 0, 2 * sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
   if (a->B <= 0) return (int)cudaGetLastError();
   WalkPlan p;
-  const cudaError_t e = walk_plan(a->B, &p);
+  e = walk_plan(a->B, &p);
   if (e != cudaSuccess) return (int)e;
   mc_walk_kernel<<<p.grid, p.threads, 0, stream>>>(*a);
   return (int)cudaGetLastError();
@@ -889,17 +993,79 @@ extern "C" int rac2d_mc_walk_plan(const WalkArgs* a, int* out) {
   return 0;
 }
 
+namespace {
+
+// K4's launch: CTAs per SM by the kernel's occupancy (with its
+// histogram's shared memory) and SMs, read once per device; the grid is
+// the smaller of what B lanes need (FOLD_V a thread) and a full card.
+struct FoldPlan {
+  int threads, blocks_per_sm, grid, regs, sms;
+};
+
+cudaError_t fold_device_plan(int dev, size_t smem, FoldPlan* p) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncSetAttribute(
+      fold_terminal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fold_terminal_kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &p->blocks_per_sm, fold_terminal_kernel, FOLD_THREADS, smem);
+  if (e != cudaSuccess) return e;
+  p->threads = FOLD_THREADS;
+  p->regs = fa.numRegs;
+  return cudaSuccess;
+}
+
+cudaError_t fold_plan(const FoldArgs* a, FoldPlan* p) {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static FoldPlan cache[MAX_DEVICES];
+  static size_t cache_smem[MAX_DEVICES];
+  static bool ready[MAX_DEVICES];
+  const size_t smem = (size_t)a->n_mu * a->nlam * sizeof(float);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev] || cache_smem[dev] != smem) {
+      e = fold_device_plan(dev, smem, &cache[dev]);
+      if (e != cudaSuccess) return e;
+      cache_smem[dev] = smem;
+      ready[dev] = true;
+    }
+    *p = cache[dev];
+  }
+  const int lanes = FOLD_THREADS * FOLD_V;
+  const int need = (a->B + lanes - 1) / lanes;
+  const int full = p->blocks_per_sm * p->sms;
+  p->grid = full < need ? full : need;
+  return cudaSuccess;
+}
+
+}  // namespace
+
 extern "C" int rac2d_fold_terminal(const FoldArgs* a, cudaStream_t stream) {
   if (a->B <= 0) return (int)cudaGetLastError();
+  FoldPlan p;
+  const cudaError_t e = fold_plan(a, &p);
+  if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)a->n_mu * a->nlam * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fold_terminal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int blocks = (a->B + FOLD_THREADS - 1) / FOLD_THREADS;
-  if (blocks > 132 * 4) blocks = 132 * 4;
-  fold_terminal_kernel<<<blocks, FOLD_THREADS, smem, stream>>>(*a);
+  fold_terminal_kernel<<<p.grid, p.threads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// K4's launch for these arguments, as 5 ints: threads per CTA, CTAs per
+// SM, grid, registers a thread, SMs.
+extern "C" int rac2d_fold_terminal_plan(const FoldArgs* a, int* out) {
+  FoldPlan p;
+  const cudaError_t e = fold_plan(a, &p);
+  if (e != cudaSuccess) return (int)e;
+  const int v[5] = {p.threads, p.blocks_per_sm, p.grid, p.regs, p.sms};
+  for (int k = 0; k < 5; ++k) out[k] = v[k];
+  return 0;
 }

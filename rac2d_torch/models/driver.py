@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import constants as c
 from ..io import draine, umist
@@ -268,11 +269,12 @@ class DiskModel:
             save_counts=mc.save_counts or mc.do_fill_blank,
             walk=walk, stats=stats)
         # scale the energy tallies back to physical units, in f64
-        tall = tall._replace(**{
-            f: getattr(tall, f).to(torch.float64) * en_scale
-            for f in ("flux", "dir_flux", "en_gain", "en_gain_abso",
-                      "ab_en_water", "collector", "collector_img",
-                      "mrw_path")})
+        with record_function("mc.rescale"):
+            tall = tall._replace(**{
+                f: getattr(tall, f).to(torch.float64) * en_scale
+                for f in ("flux", "dir_flux", "en_gain", "en_gain_abso",
+                          "ab_en_water", "collector", "collector_img",
+                          "mrw_path")})
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         stats["wall_s"] = time.time() - t0

@@ -21,6 +21,12 @@ Each wrapper dispatches on the device of the tensor it is given:
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer that a run resets and reads to show that the main path went
 through the kernel.
+
+K3 and K4 run many times a Monte Carlo pass on tables and tallies that do
+not change within it, so each has a launch object built once a pass
+(``WalkLaunch``, ``FoldLaunch``: the static checks and the ctypes struct)
+that a call only patches with the packets' pointers before it launches;
+``mc_walk`` and ``fold_terminal`` build one for a single call.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 import types
 
 import torch
@@ -63,6 +70,7 @@ _FUNCS = {
     "rac2d_mc_walk": ([_P, _P], _I),
     "rac2d_mc_walk_plan": ([_P, _P], _I),
     "rac2d_fold_terminal": ([_P, _P], _I),
+    "rac2d_fold_terminal_plan": ([_P, _P], _I),
 }
 
 
@@ -260,8 +268,8 @@ def _struct(name, fields):
 _WalkArgs = _struct("WalkArgs", [
     ("p", "x y z vx vy vz lam en tau cell status e_count rs0 rs1 rs2 rs3 "
           "cellmat tabmat lya_pair reemit_lam mrw_lnx r_lut_pack zc_pack "
-          "flux mrw_path phc en_gain_abso cr_count dir_flux n_active "
-          "next_lane stage_clk"),
+          "flux mrw_path phc en_gain_abso cr_count dir_flux counters "
+          "stage_clk"),
     ("i", "B max_steps n_cells nlam n_dust C K nT n_quantile n_mrw n_tlya "
           "n_lut ncol max_nz nmax_encounter use_mrw save_counts save_dir"),
     ("i3", "seg_i0 seg_n"),
@@ -275,7 +283,7 @@ _WalkArgs = _struct("WalkArgs", [
 
 _FoldArgs = _struct("FoldArgs", [
     ("p", "x y z vx vy vz lam en cell status collector collector_img "
-          "ab_en_water"),
+          "ab_en_water fates"),
     ("d3", "seg_log0 seg_inv_d"),
     ("d", "b_mid b_lya b_high"),
     ("i", "B nlam n_mu n_r n_phi n_cells"),
@@ -286,14 +294,27 @@ _FoldArgs = _struct("FoldArgs", [
 
 _PK_F32 = ("x", "y", "z", "vx", "vy", "vz", "lam", "en", "tau")
 _PK_I32 = ("cell", "status", "e_count", "rs0", "rs1", "rs2", "rs3")
+_FOLD_PK = ("x", "y", "z", "vx", "vy", "vz", "lam", "en", "cell", "status")
+FOLD_V = 2        # lanes a K4 thread takes at a time (csrc/mcwalk.cu)
+_WALK_TALLIES = ("flux", "mrw_path", "phc", "en_gain_abso", "cr_count",
+                 "dir_flux")
+_FOLD_TALLIES = ("collector", "collector_img", "ab_en_water")
 
 
-def _check_packets(pk, device):
+_PK_DTYPE = {f: torch.float32 for f in _PK_F32}
+_PK_DTYPE.update({f: torch.int32 for f in _PK_I32})
+
+
+def _check_packets(pk, device, fields=_PK_F32 + _PK_I32):
+    """B, after checking the fields' device, dtype, shape [B] and
+    contiguity (a quick test first; _check words the error)."""
     B = pk.x.shape[0]
-    for f in _PK_F32:
-        _check(f"packets.{f}", getattr(pk, f), (B,), device)
-    for f in _PK_I32:
-        _check(f"packets.{f}", getattr(pk, f), (B,), device, torch.int32)
+    shape = (B,)
+    for f in fields:
+        t = getattr(pk, f)
+        if t.dtype is not _PK_DTYPE[f] or t.shape != shape \
+                or not t.is_contiguous() or t.device != device:
+            _check(f"packets.{f}", t, shape, device, _PK_DTYPE[f])
     return B
 
 
@@ -325,6 +346,171 @@ def _fill(struct, values):
     return out
 
 
+class _Launch:
+    """What K3's and K4's launch objects share: the device, the tallies
+    the struct points at, the last packets (and fate counter) written
+    into it, and the host seconds spent in calls."""
+
+    def __init__(self, device, tallies, fields):
+        self.device = torch.device(device)
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"{type(self).__name__}: no kernel or plain "
+                             f"version for {self.device}")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.tallies = tallies
+        self._tally_fields = fields
+        self._tally_ptrs = tuple(getattr(tallies, f).data_ptr()
+                                 for f in fields)
+        self._pk = None
+        self.host_s = 0.0
+
+    def _same_tallies(self, tallies):
+        if tallies is self.tallies:
+            return
+        got = tuple(getattr(tallies, f).data_ptr()
+                    for f in self._tally_fields)
+        if got != self._tally_ptrs:
+            bad = [f for f, a, b in zip(self._tally_fields, got,
+                                        self._tally_ptrs) if a != b]
+            raise ValueError(f"{type(self).__name__}: tallies {bad} are not "
+                             f"the tensors it was built with")
+
+    def _packets(self, pk, fields):
+        """Check a new Packets object and write its pointers and B."""
+        if pk is self._pk:
+            return
+        B = _check_packets(pk, self.device, fields)
+        args = self.args
+        for f in fields:
+            setattr(args, f, getattr(pk, f).data_ptr())
+        args.B = B
+        self._pk = pk
+
+    def _enqueue(self, fn):
+        """Launch on the current stream of the object's device."""
+        idx = self.device.index
+        if torch.cuda.current_device() != idx:
+            with torch.cuda.device(idx):
+                return self._enqueue(fn)
+        # the raw stream handle: torch.cuda.current_stream() builds a
+        # Stream object, a few microseconds a call
+        _launch(fn, self._addr, torch._C._cuda_getCurrentRawStream(idx))
+
+
+class WalkLaunch(_Launch):
+    """K3's launch for one pass: built once (every static check, the
+    ctypes struct with the tables, the tallies and the constants, and the
+    int32 counters the kernel writes, which rac2d_mc_walk zeroes on the
+    stream before each launch), then called once a chunk as
+    ``launch(pk, tallies, max_steps)``: it checks a Packets object the
+    first time it sees it, writes its pointers, B and max_steps, and
+    launches.  Returns the number of lanes still active, a 0-d view of the
+    counters, valid until the next call.  `tallies` must hold the tensors
+    the object was built with.  On CPU tensors a call is
+    ``mcrt._walk_plain``.  stage_clk (int64 [K3_STAGES], optional)
+    receives the clock cycles of each stage of the step from a build with
+    RAC2D_K3_STAGES."""
+
+    def __init__(self, ws, tallies, nmax_encounter=200_000, use_mrw=True,
+                 mrw_gamma=4.0, mrw_lam_min=1e4, save_dir=False,
+                 save_counts=True, stage_clk=None):
+        from . import mcrt
+        from .optics import f32
+        super().__init__(ws.device, tallies, _WALK_TALLIES)
+        dev = self.device
+        self.ws = ws
+        self.kw = dict(nmax_encounter=nmax_encounter, use_mrw=use_mrw,
+                       mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
+                       save_dir=save_dir, save_counts=save_counts)
+        gi = ws.gi
+        packed = gi.r_lut_pack is not None and gi.zc_pack is not None
+        if dev.type == "cuda" and not packed:
+            raise ValueError("mc_walk: the kernel takes the packed locate "
+                             "tables (geometry.build_grid_index)")
+        if dev.type == "cuda" and ws.n_dust > MAX_DUST:
+            raise ValueError(f"mc_walk: {ws.n_dust} dust components, the "
+                             f"kernel takes at most {MAX_DUST}")
+        n, nlam, nd = ws.n_cells, ws.nlam, ws.n_dust
+        C, K = ws.cellmat.shape[1], ws.tabmat.shape[1]
+        n_lut = gi.r_lut_pack.shape[0] if packed else 0
+        ncol = gi.zc_pack.shape[0] if packed else 0
+        max_nz = (gi.zc_pack.shape[1] - 1) // 2 if packed else 0
+        checks = [
+            ("cellmat", ws.cellmat, (n, C)), ("tabmat", ws.tabmat, (nlam, K)),
+            ("lya_pair", ws.lya_pair, (nlam * mcrt.N_TLYA, 2)),
+            ("reemit_lam", ws.reemit_lam, (nd * ws.nT * ws.n_quantile,)),
+            ("mrw_lnx", ws.mrw_lnx, (ws.n_mrw,)),
+            ("flux", tallies.flux, (n, nlam)),
+            ("mrw_path", tallies.mrw_path, (n,)),
+            ("phc", tallies.phc, (n, nlam)),
+            ("en_gain_abso", tallies.en_gain_abso, (nd, n)),
+            ("cr_count", tallies.cr_count, (n,)),
+            ("dir_flux", tallies.dir_flux, (n, 3))]
+        if packed:
+            checks += [("r_lut_pack", gi.r_lut_pack, (n_lut, 3)),
+                       ("zc_pack", gi.zc_pack, (ncol, 2 * max_nz + 1))]
+        for name, t, shape in checks:
+            _check(name, t, shape, dev)
+        if stage_clk is not None:
+            _check("stage_clk", stage_clk, (K3_STAGES,), dev, torch.int64)
+        self.counters = torch.zeros(2, dtype=torch.int32, device=dev)
+        self._n_active = self.counters[0]
+        vals = dict(
+            cellmat=ws.cellmat, tabmat=ws.tabmat, lya_pair=ws.lya_pair,
+            reemit_lam=ws.reemit_lam, mrw_lnx=ws.mrw_lnx,
+            r_lut_pack=gi.r_lut_pack, zc_pack=gi.zc_pack, flux=tallies.flux,
+            mrw_path=tallies.mrw_path, phc=tallies.phc,
+            en_gain_abso=tallies.en_gain_abso, cr_count=tallies.cr_count,
+            dir_flux=tallies.dir_flux, counters=self.counters,
+            stage_clk=stage_clk,
+            n_cells=n, nlam=nlam, n_dust=nd,
+            C=C, K=K, nT=ws.nT, n_quantile=ws.n_quantile, n_mrw=ws.n_mrw,
+            n_tlya=mcrt.N_TLYA, n_lut=n_lut, ncol=ncol, max_nz=max_nz,
+            nmax_encounter=int(nmax_encounter), use_mrw=int(bool(use_mrw)),
+            save_counts=int(bool(save_counts)), save_dir=int(bool(save_dir)),
+            lam_lo=ws.lam_lo, lam_hi=ws.lam_hi, xr_lo=f32(ws.xr_lo),
+            xr_hi=f32(ws.xr_hi), lnT0=ws.lnT0, inv_dlnT=ws.inv_dlnT,
+            td_cold=ws.td_cold, lnT_lo_lya=ws.lnT_lo_lya,
+            inv_dlnT_lya=ws.inv_dlnT_lya, mrw_gamma=f32(mrw_gamma),
+            mrw_lam_min=f32(mrw_lam_min),
+            star_k=f32(mcrt.DOPPLER_K * ws.star_mass),
+            r_lut_log0=f32(gi.r_lut_log0), r_lut_inv_d=f32(gi.r_lut_inv_d),
+            rmin_dom=f32(gi.rmin_dom), rmax_dom=f32(gi.rmax_dom),
+            zmax_dom=f32(gi.zmax_dom))
+        vals.update(_seg_fields(ws.seg, f32))
+        self.args = _fill(_WalkArgs, vals)
+        self._addr = ctypes.addressof(self.args)
+
+    def prepare(self, pk, max_steps):
+        """The struct for a launch on `pk` (checked if new), no launch."""
+        if max_steps < 1:
+            raise ValueError(f"mc_walk: max_steps={max_steps}, at least 1")
+        self._packets(pk, _PK_F32 + _PK_I32)
+        self.args.max_steps = int(max_steps)
+        return self.args
+
+    def __call__(self, pk, tallies, max_steps):
+        t0 = time.perf_counter()
+        self._same_tallies(tallies)
+        if self.device.type == "cpu":
+            from . import mcrt
+            out = mcrt._walk_plain(self.ws, pk, tallies, max_steps, **self.kw)
+        else:
+            self.prepare(pk, max_steps)
+            self._enqueue(load().rac2d_mc_walk)
+            mc_walk.launches += 1
+            out = self._n_active
+        self.host_s += time.perf_counter() - t0
+        return out
+
+    def plan(self):
+        """K3's launch for the packets last prepared: threads per CTA,
+        CTAs per SM, grid, registers and local memory bytes a thread,
+        shared memory bytes a CTA, SMs."""
+        return _plan(load().rac2d_mc_walk_plan, self._addr, WALK_PLAN_FIELDS)
+
+
 def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
             use_mrw=True, mrw_gamma=4.0, mrw_lam_min=1e4, save_dir=False,
             save_counts=True):
@@ -332,147 +518,109 @@ def mc_walk(ws, pk, tallies, max_steps, nmax_encounter=200_000,
     place, and add the step tallies (flux and mrw_path; phc, en_gain_abso
     and cr_count with save_counts; dir_flux with save_dir) into
     `tallies`.  Returns the number of lanes still active (0-d tensor).
-    On a CPU tensor this is ``mcrt._walk_plain``."""
-    from . import mcrt
-    kw = dict(nmax_encounter=nmax_encounter, use_mrw=use_mrw,
-              mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
-              save_dir=save_dir, save_counts=save_counts)
-    if not _on_cuda(pk.x, "mc_walk"):
-        return mcrt._walk_plain(ws, pk, tallies, max_steps, **kw)
-    lib = load()
-    args, counters = walk_args(ws, pk, tallies, max_steps, **kw)
-    with torch.cuda.device(pk.x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.rac2d_mc_walk, ctypes.addressof(args), stream)
-    mc_walk.launches += 1
-    return counters[0]
+    One call through a WalkLaunch built for it; on a CPU tensor this is
+    ``mcrt._walk_plain``."""
+    launch = WalkLaunch(ws, tallies, nmax_encounter=nmax_encounter,
+                        use_mrw=use_mrw, mrw_gamma=mrw_gamma,
+                        mrw_lam_min=mrw_lam_min, save_dir=save_dir,
+                        save_counts=save_counts)
+    return launch(pk, tallies, max_steps)
 
 
 mc_walk.launches = 0
 
-
-def walk_args(ws, pk, tallies, max_steps, nmax_encounter=200_000,
-              use_mrw=True, mrw_gamma=4.0, mrw_lam_min=1e4, save_dir=False,
-              save_counts=True, stage_clk=None):
-    """K3's checked argument struct for packets and tallies on a CUDA
-    device, and the int32 counters it writes ([0]: lanes still active).
-    stage_clk (int64 [K3_STAGES], optional) receives the clock cycles of
-    each stage of the step from a build with RAC2D_K3_STAGES."""
-    from . import mcrt
-    from .optics import f32
-    dev = pk.x.device
-    B = _check_packets(pk, dev)
-    gi = ws.gi
-    if max_steps < 1:
-        raise ValueError(f"mc_walk: max_steps={max_steps}, at least 1")
-    if gi.r_lut_pack is None or gi.zc_pack is None:
-        raise ValueError("mc_walk: the kernel takes the packed locate "
-                         "tables (geometry.build_grid_index)")
-    if ws.n_dust > MAX_DUST:
-        raise ValueError(f"mc_walk: {ws.n_dust} dust components, the "
-                         f"kernel takes at most {MAX_DUST}")
-    n, nlam, nd = ws.n_cells, ws.nlam, ws.n_dust
-    C, K = ws.cellmat.shape[1], ws.tabmat.shape[1]
-    n_lut, ncol = gi.r_lut_pack.shape[0], gi.zc_pack.shape[0]
-    max_nz = (gi.zc_pack.shape[1] - 1) // 2
-    for name, t, shape in (
-            ("cellmat", ws.cellmat, (n, C)), ("tabmat", ws.tabmat, (nlam, K)),
-            ("lya_pair", ws.lya_pair, (nlam * mcrt.N_TLYA, 2)),
-            ("reemit_lam", ws.reemit_lam, (nd * ws.nT * ws.n_quantile,)),
-            ("mrw_lnx", ws.mrw_lnx, (ws.n_mrw,)),
-            ("r_lut_pack", gi.r_lut_pack, (n_lut, 3)),
-            ("zc_pack", gi.zc_pack, (ncol, 2 * max_nz + 1)),
-            ("flux", tallies.flux, (n, nlam)),
-            ("mrw_path", tallies.mrw_path, (n,)),
-            ("phc", tallies.phc, (n, nlam)),
-            ("en_gain_abso", tallies.en_gain_abso, (nd, n)),
-            ("cr_count", tallies.cr_count, (n,)),
-            ("dir_flux", tallies.dir_flux, (n, 3))):
-        _check(name, t, shape, dev)
-    if stage_clk is not None:
-        _check("stage_clk", stage_clk, (K3_STAGES,), dev, torch.int64)
-    counters = torch.zeros(2, dtype=torch.int32, device=dev)
-    vals = {k: getattr(pk, k) for k in _PK_F32 + _PK_I32}
-    vals.update(
-        cellmat=ws.cellmat, tabmat=ws.tabmat, lya_pair=ws.lya_pair,
-        reemit_lam=ws.reemit_lam, mrw_lnx=ws.mrw_lnx,
-        r_lut_pack=gi.r_lut_pack, zc_pack=gi.zc_pack, flux=tallies.flux,
-        mrw_path=tallies.mrw_path, phc=tallies.phc,
-        en_gain_abso=tallies.en_gain_abso, cr_count=tallies.cr_count,
-        dir_flux=tallies.dir_flux, n_active=counters.data_ptr(),
-        next_lane=counters.data_ptr() + 4,
-        stage_clk=0 if stage_clk is None else stage_clk,
-        B=B, max_steps=int(max_steps), n_cells=n, nlam=nlam, n_dust=nd,
-        C=C, K=K, nT=ws.nT, n_quantile=ws.n_quantile, n_mrw=ws.n_mrw,
-        n_tlya=mcrt.N_TLYA, n_lut=n_lut, ncol=ncol, max_nz=max_nz,
-        nmax_encounter=int(nmax_encounter), use_mrw=int(bool(use_mrw)),
-        save_counts=int(bool(save_counts)), save_dir=int(bool(save_dir)),
-        lam_lo=ws.lam_lo, lam_hi=ws.lam_hi, xr_lo=f32(ws.xr_lo),
-        xr_hi=f32(ws.xr_hi), lnT0=ws.lnT0, inv_dlnT=ws.inv_dlnT,
-        td_cold=ws.td_cold, lnT_lo_lya=ws.lnT_lo_lya,
-        inv_dlnT_lya=ws.inv_dlnT_lya, mrw_gamma=f32(mrw_gamma),
-        mrw_lam_min=f32(mrw_lam_min),
-        star_k=f32(mcrt.DOPPLER_K * ws.star_mass),
-        r_lut_log0=f32(gi.r_lut_log0), r_lut_inv_d=f32(gi.r_lut_inv_d),
-        rmin_dom=f32(gi.rmin_dom), rmax_dom=f32(gi.rmax_dom),
-        zmax_dom=f32(gi.zmax_dom))
-    vals.update(_seg_fields(ws.seg, f32))
-    return _fill(_WalkArgs, vals), counters
-
-
 WALK_PLAN_FIELDS = ("threads", "blocks_per_sm", "grid", "regs",
                     "local_bytes", "smem", "sms")
+FOLD_PLAN_FIELDS = ("threads", "blocks_per_sm", "grid", "regs", "sms")
 
 
-def walk_plan(args, lib=None):
-    """K3's launch for a walk_args struct (a dict): threads per CTA, CTAs
-    per SM, grid, registers and local memory bytes a thread, shared
-    memory bytes a CTA, SMs."""
-    lib = lib or load()
-    out = (ctypes.c_int * len(WALK_PLAN_FIELDS))()
-    _launch(lib.rac2d_mc_walk_plan, ctypes.addressof(args),
-            ctypes.addressof(out))
-    return dict(zip(WALK_PLAN_FIELDS, out))
+def _plan(fn, addr, fields):
+    out = (ctypes.c_int * len(fields))()
+    _launch(fn, addr, ctypes.addressof(out))
+    return dict(zip(fields, out))
 
 
-def fold_terminal(model, pk, tallies, n_mu):
+class FoldLaunch(_Launch):
+    """K4's launch for one pass: built once (the static checks, the
+    ctypes struct with the tallies, the image-plane constants
+    (mcrt.fold_bins) and the lambda segments), then called as
+    ``fold(pk, tallies, fates=None)`` at each refill, compaction and at
+    the end of the pass: it checks a Packets object (and a fate counter)
+    the first time it sees it, writes its pointers and B, and launches.
+    With `fates` (int64 [mcrt.N_CODES] on the device) the lanes of each
+    status code 0-5 are added into it, padding included.  `tallies` must hold
+    the tensors the object was built with.  On CPU tensors a call is
+    ``mcrt._fold_terminal_plain``."""
+
+    def __init__(self, model, tallies, n_mu):
+        from . import mcrt
+        super().__init__(tallies.collector.device, tallies, _FOLD_TALLIES)
+        dev = self.device
+        self.model, self.n_mu = model, n_mu
+        n_mu_t, nlam = tallies.collector.shape
+        _, n_r, n_phi, _ = tallies.collector_img.shape
+        n = tallies.ab_en_water.shape[0]
+        if n_mu_t != n_mu:
+            raise ValueError(f"fold_terminal: collector has {n_mu_t} mu "
+                             f"bins, n_mu={n_mu}")
+        for name, t, shape in (
+                ("collector", tallies.collector, (n_mu, nlam)),
+                ("collector_img", tallies.collector_img,
+                 (n_mu, n_r, n_phi, nlam)),
+                ("ab_en_water", tallies.ab_en_water, (n,))):
+            _check(name, t, shape, dev)
+        fb = mcrt.fold_bins(model.gi)
+        vals = dict(collector=tallies.collector,
+                    collector_img=tallies.collector_img,
+                    ab_en_water=tallies.ab_en_water, nlam=nlam, n_mu=n_mu,
+                    n_r=n_r, n_phi=n_phi, n_cells=n, r0=fb.r0,
+                    log_ratio=fb.log_ratio)
+        vals.update(_seg_fields(model.tab.lam_seg, float))
+        self.args = _fill(_FoldArgs, vals)
+        self._addr = ctypes.addressof(self.args)
+        self._fates = None
+        self._n_codes = mcrt.N_CODES
+
+    def prepare(self, pk, fates=None):
+        """The struct for a launch on `pk` (checked if new), no launch."""
+        self._packets(pk, _FOLD_PK)
+        if fates is not self._fates:
+            if fates is not None:
+                _check("fates", fates, (self._n_codes,), self.device,
+                       torch.int64)
+            self.args.fates = None if fates is None else fates.data_ptr()
+            self._fates = fates
+        return self.args
+
+    def __call__(self, pk, tallies, fates=None):
+        t0 = time.perf_counter()
+        self._same_tallies(tallies)
+        if self.device.type == "cpu":
+            from . import mcrt
+            mcrt._fold_terminal_plain(self.model, pk, tallies, self.n_mu,
+                                      fates)
+        else:
+            self.prepare(pk, fates)
+            self._enqueue(load().rac2d_fold_terminal)
+            fold_terminal.launches += 1
+        self.host_s += time.perf_counter() - t0
+        return tallies
+
+    def plan(self):
+        """K4's launch for the packets last prepared: threads per CTA,
+        CTAs per SM, grid, registers a thread, SMs."""
+        return _plan(load().rac2d_fold_terminal_plan, self._addr,
+                     FOLD_PLAN_FIELDS)
+
+
+def fold_terminal(model, pk, tallies, n_mu, fates=None):
     """K4: fold the terminated lanes of a batch into the escape collector
-    ([n_mu, nlam], per-CTA shared-memory histogram), the image-plane bins
-    ([n_mu, n_r, n_phi, nlam]) and the water deposit ([n_cells]), in
-    place.  On a CPU tensor this is ``mcrt._fold_terminal_plain``."""
-    from . import mcrt
-    if not _on_cuda(pk.x, "fold_terminal"):
-        return mcrt._fold_terminal_plain(model, pk, tallies, n_mu)
-    dev = pk.x.device
-    B = _check_packets(pk, dev)
-    n_mu_t, nlam = tallies.collector.shape
-    _, n_r, n_phi, _ = tallies.collector_img.shape
-    n = tallies.ab_en_water.shape[0]
-    if n_mu_t != n_mu:
-        raise ValueError(f"fold_terminal: collector has {n_mu_t} mu bins, "
-                         f"n_mu={n_mu}")
-    for name, t, shape in (
-            ("collector", tallies.collector, (n_mu, nlam)),
-            ("collector_img", tallies.collector_img,
-             (n_mu, n_r, n_phi, nlam)),
-            ("ab_en_water", tallies.ab_en_water, (n,))):
-        _check(name, t, shape, dev)
-    lib = load()
-    fb = mcrt.fold_bins(model.gi)
-    vals = {k: getattr(pk, k) for k in
-            ("x", "y", "z", "vx", "vy", "vz", "lam", "en", "cell", "status")}
-    vals.update(collector=tallies.collector,
-                collector_img=tallies.collector_img,
-                ab_en_water=tallies.ab_en_water, B=B, nlam=nlam, n_mu=n_mu,
-                n_r=n_r, n_phi=n_phi, n_cells=n, r0=fb.r0,
-                log_ratio=fb.log_ratio)
-    vals.update(_seg_fields(model.tab.lam_seg, float))
-    args = _fill(_FoldArgs, vals)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.rac2d_fold_terminal, ctypes.addressof(args), stream)
-    fold_terminal.launches += 1
-    return tallies
+    ([n_mu, nlam]), the image-plane bins ([n_mu, n_r, n_phi, nlam]) and
+    the water deposit ([n_cells]), in place, and add the lanes of each
+    status code into `fates` (int64 [mcrt.N_CODES]) if given.  One call
+    through a FoldLaunch built for it; on a CPU tensor this is
+    ``mcrt._fold_terminal_plain``."""
+    return FoldLaunch(model, tallies, n_mu)(pk, tallies, fates)
 
 
 fold_terminal.launches = 0

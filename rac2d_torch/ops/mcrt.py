@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import constants as c
 from ..io import bethell
@@ -48,6 +49,7 @@ ST_PADDING = 4      # compaction filler lane: never tallied, never counted
 ST_DESTR_WATER = 5  # destroyed by water absorption (its en deposit is
                     # folded outside the walk loop; counts as destructed)
 
+N_CODES = 6         # status codes 0-5, counted per pass by the fold
 N_TLYA = 64         # ln T bins of the Lyman-alpha sigma table
 TAIL_LANES = 64     # a streamed pass's tail: at most this many live lanes
 M32 = 0xFFFFFFFF
@@ -666,14 +668,22 @@ def fold_bins(gi: geometry.GridIndex) -> FoldBins:
 
 
 def _fold_terminal_plain(model: McModel, pk: Packets, tallies: McTallies,
-                         n_mu: int):
+                         n_mu: int, fates=None):
     """K4's plain version (JAX ``_fold_terminal``, mcrt.py:832-897): the
     escape collector (mu x lambda SED bins + image-plane r/phi bins;
     reference collect_photon_do, montecarlo.f90:1960-2043) and the water
-    deposit, over the terminated lanes, added in place.
+    deposit, over the terminated lanes, added in place.  With `fates`
+    (int64 [N_CODES]), the lanes of each status code 0-5 are added into
+    it, padding included, with no read back to the host.
 
     Valid because a terminated lane's (x, v, lam, en, cell) freeze at
     its terminal step."""
+    if fates is not None:
+        # a bincount of the codes; torch.bincount would read the largest
+        # code back to the host on a CUDA tensor
+        codes = torch.arange(N_CODES, dtype=pk.status.dtype,
+                             device=pk.status.device)
+        fates.add_((pk.status[:, None] == codes).sum(0))
     seg = model.tab.lam_seg
     nlam = tallies.collector.shape[1]
     escaped = pk.status == ST_ESCAPED
@@ -724,26 +734,23 @@ def _fold_terminal_plain(model: McModel, pk: Packets, tallies: McTallies,
     return tallies
 
 
-def _walk(ws, pk, tallies, max_steps, walk, **kw):
-    """One walk chunk: kernel K3 (its plain version on a CPU tensor), or
-    the plain version when walk == "plain"."""
+def _pass_launchers(model, ws, tallies, n_mu, walk, **kw):
+    """A pass's walk ``(pk, tallies, steps) -> lanes still active`` and
+    fold ``(pk, tallies, fates=None)``, built once: K3's and K4's launch
+    objects (their plain versions on CPU tensors), or the plain versions
+    when walk == "plain"."""
     if walk == "plain":
-        return _walk_plain(ws, pk, tallies, max_steps, **kw)
+        def walk_fn(pk, tl, steps):
+            return _walk_plain(ws, pk, tl, steps, **kw)
+
+        def fold_fn(pk, tl, fates=None):
+            return _fold_terminal_plain(model, pk, tl, n_mu, fates)
+        return walk_fn, fold_fn
     if walk != "kernel":
         raise ValueError(f"walk must be 'kernel' or 'plain', got {walk!r}")
     from . import kernels
-    return kernels.mc_walk(ws, pk, tallies, max_steps, **kw)
-
-
-def fold_terminal_tallies(model, pk, tallies, n_mu, walk="kernel"):
-    """Terminal fold: kernel K4 (its plain version on a CPU tensor), or
-    the plain version when walk == "plain"."""
-    if walk == "plain":
-        return _fold_terminal_plain(model, pk, tallies, n_mu)
-    if walk != "kernel":
-        raise ValueError(f"walk must be 'kernel' or 'plain', got {walk!r}")
-    from . import kernels
-    return kernels.fold_terminal(model, pk, tallies, n_mu)
+    return (kernels.WalkLaunch(ws, tallies, **kw),
+            kernels.FoldLaunch(model, tallies, n_mu))
 
 
 def _mrw_fold_tallies(tallies, rho_kapP, Tdust, rho_dust, lam_grid,
@@ -838,17 +845,24 @@ _FATE_GROUPS = {"escaped": (ST_ESCAPED,),
                 "active": (ST_ACTIVE,)}
 
 
-def packet_fates(status) -> dict:
-    """Fate counts of a packet batch, ignoring compaction padding."""
-    counts = torch.bincount(status.to(torch.int64), minlength=6).tolist()
+def fates_of_counts(counts) -> dict:
+    """Fate counts from lanes per status code 0-5 (a list), ignoring
+    compaction padding."""
     return {name: int(sum(counts[k] for k in codes))
             for name, codes in _FATE_GROUPS.items()}
 
 
-def _finish_pass(model, pk, tallies, n_mu, use_mrw, mrw_lam_min, walk):
+def packet_fates(status) -> dict:
+    """Fate counts of a packet batch, ignoring compaction padding."""
+    return fates_of_counts(
+        torch.bincount(status.to(torch.int64), minlength=N_CODES).tolist())
+
+
+def _finish_pass(model, pk, tallies, use_mrw, mrw_lam_min, fold,
+                 fates=None):
     if use_mrw:
         _mc_mrw_finalize(model, tallies, mrw_lam_min=mrw_lam_min)
-    fold_terminal_tallies(model, pk, tallies, n_mu, walk)
+    fold(pk, tallies, fates)
     _en_gain_from_flux(model, tallies)
 
 
@@ -863,17 +877,18 @@ def mc_pass(model: McModel, packets: Packets, tallies: McTallies,
     terminal fold and en_gain, with no compaction (JAX ``mc_pass``).
     Packets and tallies advance in place; returns (packets, tallies)."""
     ws = WalkSetup(model, n_quantile)
-    kw = dict(nmax_encounter=nmax_encounter, use_mrw=use_mrw,
-              mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
-              save_dir=save_dir, save_counts=save_counts)
+    walk_fn, fold = _pass_launchers(
+        model, ws, tallies, n_mu, walk, nmax_encounter=nmax_encounter,
+        use_mrw=use_mrw, mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
+        save_dir=save_dir, save_counts=save_counts)
     done = 0
     while done < max_steps:
         chunk = min(steps_per_call, max_steps - done)
-        n_active = int(_walk(ws, packets, tallies, chunk, walk, **kw))
+        n_active = int(walk_fn(packets, tallies, chunk))
         done += chunk
         if n_active == 0:
             break
-    _finish_pass(model, packets, tallies, n_mu, use_mrw, mrw_lam_min, walk)
+    _finish_pass(model, packets, tallies, use_mrw, mrw_lam_min, fold)
     return packets, tallies
 
 
@@ -921,15 +936,20 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
     ``mc_pass_streamed``): the batch is topped up with fresh packets from
     the pool whenever the live count drops to half; once the pool is dry
     a pow2 compaction ladder shrinks the batch for the tail.  Retired
-    lanes are folded (K4) and counted at each refill or compaction.
+    lanes are folded (K4) at each refill or compaction; the fold also
+    counts them into a device counter that the pass reads once, at its
+    end.  The walk's and the fold's launch objects are built once, after
+    WalkSetup.
 
     lam_all/en_all are host arrays (the pool).  Returns (packets,
     tallies, fates); a packet still walking after max_steps is counted
     as "active", as in the JAX package.  With a `stats` dict, adds the
-    counts of walk chunks, refills, compactions and walk steps to it, and
-    the chunks and host seconds spent on a tail of at most TAIL_LANES
-    live lanes after the pool ran dry, and (as "live_lanes") the packets
-    still walking at max_steps, if any."""
+    counts of walk chunks, refills, compactions and walk steps to it, the
+    chunks and host seconds spent on a tail of at most TAIL_LANES live
+    lanes after the pool ran dry, the reads back to the host by the pass
+    loop ("host_reads"), the host seconds spent in K3's and K4's launch
+    objects ("k3_host_s", "k4_host_s"; kernel walk only), and (as
+    "live_lanes") the packets still walking at max_steps, if any."""
     dev = tallies.flux.device
     lam_all = np.asarray(lam_all, dtype=np.float64)
     en_all = np.asarray(en_all, dtype=np.float64)
@@ -943,13 +963,17 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
         lam_all = np.concatenate([lam_all, np.full(pad, lam_all[-1])])
         en_all = np.concatenate([en_all, np.zeros(pad)])
         N += pad
-    fates = {name: 0 for name in _FATE_GROUPS}
     st = {"chunks": 0, "refills": 0, "compactions": 0, "tail_chunks": 0,
           "tail_s": 0.0}
     ws = WalkSetup(model, n_quantile)
-    kw = dict(nmax_encounter=nmax_encounter, use_mrw=use_mrw,
-              mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
-              save_dir=save_dir, save_counts=save_counts)
+    walk_fn, fold = _pass_launchers(
+        model, ws, tallies, n_mu, walk, nmax_encounter=nmax_encounter,
+        use_mrw=use_mrw, mrw_gamma=mrw_gamma, mrw_lam_min=mrw_lam_min,
+        save_dir=save_dir, save_counts=save_counts)
+    # lanes per status code, folded at a refill or compaction (row 0) and
+    # at the end (row 1); read once, at the end of the pass
+    counts = torch.zeros(2, N_CODES, dtype=torch.int64, device=dev)
+    retired, final = counts[0], counts[1]
 
     def launch(a, b):
         return launch_packets(model, gen, torch.as_tensor(lam_all[a:b],
@@ -957,19 +981,17 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
                               torch.as_tensor(en_all[a:b], device=dev),
                               minw, maxw)
 
-    def retire(pk):
-        fold_terminal_tallies(model, pk, tallies, n_mu, walk)
-        for k2, v in packet_fates(pk.status).items():
-            if k2 != "active":
-                fates[k2] += v
-
-    packets = launch(0, mb)
+    with record_function("mc.launch"):
+        packets = launch(0, mb)
     pool = mb
     done = 0
     t_chunk = time.perf_counter()
     while done < max_steps:
         chunk = min(steps_per_call, max_steps - done)
-        n_active = int(_walk(ws, packets, tallies, chunk, walk, **kw))
+        with record_function("mc.walk"):
+            live = walk_fn(packets, tallies, chunk)
+        with record_function("mc.live_count"):
+            n_active = int(live)
         st["chunks"] += 1
         done += chunk
         now = time.perf_counter()
@@ -983,9 +1005,12 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
             break
         if pool + topup <= N and n_active <= mb - topup:
             # retire the dead lanes (fold + count), then top up
-            retire(packets)
-            packets = _refill_packets(packets, launch(pool, pool + topup),
-                                      n_active)
+            with record_function("mc.retire"):
+                fold(packets, tallies, retired)
+            with record_function("mc.launch"):
+                fresh = launch(pool, pool + topup)
+            with record_function("mc.refill"):
+                packets = _refill_packets(packets, fresh, n_active)
             pool += topup
             st["refills"] += 1
         elif pool >= N:
@@ -993,18 +1018,30 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
             tier = max(1 << int(np.ceil(np.log2(max(n_active, 1)))),
                        compact_floor)
             if tier < int(packets.status.shape[0]):
-                retire(packets)
-                packets = _compact_packets(packets, tier)
+                with record_function("mc.retire"):
+                    fold(packets, tallies, retired)
+                with record_function("mc.compact"):
+                    packets = _compact_packets(packets, tier)
                 st["compactions"] += 1
-    _finish_pass(model, packets, tallies, n_mu, use_mrw, mrw_lam_min, walk)
-    final = packet_fates(packets.status)
-    for k2 in fates:
-        fates[k2] += final.get(k2, 0)
+    with record_function("mc.finish"):
+        _finish_pass(model, packets, tallies, use_mrw, mrw_lam_min, fold,
+                     final)
+        c = counts.tolist()
+    # a retired batch's live lanes walk on and are counted again later:
+    # only the final batch's count "active"
+    ret, fin = fates_of_counts(c[0]), fates_of_counts(c[1])
+    fates = {k: fin[k] + (ret[k] if k != "active" else 0) for k in fin}
     st["steps"] = done
+    # reads back to the host by the pass loop: a live count a chunk and
+    # the fate counts
+    st["host_reads"] = st["chunks"] + 1
+    for name, fn in (("k3_host_s", walk_fn), ("k4_host_s", fold)):
+        if hasattr(fn, "host_s"):
+            st[name] = fn.host_s
     if stats is not None:
         for k2, v in st.items():
             stats[k2] = stats.get(k2, 0) + v
-        if final["active"]:
+        if fin["active"]:
             # the lanes still walking at max_steps, for diagnosis
             stats["live_lanes"] = packets.take(
                 packets.status == ST_ACTIVE)

@@ -352,14 +352,15 @@ def test_walk_plan_on_card(cuda_device):
     ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
     tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
                               device=cuda_device)
-    plan = kernels.walk_plan(kernels.walk_args(ws, pk, tl, 64)[0])
+    launch = kernels.WalkLaunch(ws, tl)
+    launch.prepare(pk, 64)
+    plan = launch.plan()
     assert plan["blocks_per_sm"] >= 2
     assert plan["grid"] == plan["blocks_per_sm"] * plan["sms"]
     assert plan["grid"] * plan["threads"] < 262144
     assert plan["local_bytes"] <= 32
-    few = kernels.walk_plan(kernels.walk_args(ws, pk.take(slice(0, 129)),
-                                              tl, 64)[0])
-    assert few["grid"] == 1
+    launch.prepare(pk.take(slice(0, 129)), 64)
+    assert launch.plan()["grid"] == 1
 
 
 @pytest.mark.cuda
@@ -379,3 +380,206 @@ def test_mc_kernels_reject_bad_arguments_on_card(cuda_device):
         kernels.mc_walk(ws, pk, tl, 4)
     with pytest.raises(ValueError):
         kernels.fold_terminal(model, pk, tl, 4)
+    with pytest.raises(TypeError):
+        kernels.fold_terminal(model, pk, tl, 5,
+                              torch.zeros(6, dtype=torch.int32,
+                                          device=cuda_device))
+    # the launch objects: a packet tensor of the wrong type, or tallies
+    # other than those they were built with, raise before any launch
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    walk = kernels.WalkLaunch(ws, tl)
+    fold = kernels.FoldLaunch(model, tl, 5)
+    other = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                                 device=cuda_device)
+    kernels.reset_launches()
+    with pytest.raises(TypeError):
+        walk(pk._replace(cell=pk.cell.float()), tl, 4)
+    with pytest.raises(ValueError):
+        walk(pk, other, 4)
+    with pytest.raises(TypeError):
+        fold(pk._replace(status=pk.status.long()), tl)
+    with pytest.raises(ValueError):
+        fold(pk, other)
+    assert kernels.mc_walk.launches == 0
+    assert kernels.fold_terminal.launches == 0
+
+
+# --------------------------------------------------------------------
+# K3/K4's launch objects: built once per pass, patched per Packets object
+
+def _launch_setup(device, n_packets=256):
+    m, model, pk = _mc_setup(device, n_packets=n_packets)
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                              device=device)
+    return m, model, ws, pk, tl
+
+
+def struct_fields(args):
+    """A ctypes argument struct as a dict (arrays as lists)."""
+    return {n: (list(v) if hasattr(v, "_length_") else v)
+            for n, v in ((n, getattr(args, n)) for n, _ in args._fields_)}
+
+
+def _after_refill_and_compaction(model, pk, m):
+    """The Packets objects of a pass after a walk chunk, a refill and a
+    compaction (mcrt's own helpers, on the CPU)."""
+    ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
+    tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                              device="cpu")
+    n_active = int(mcrt._walk_plain(ws, pk, tl, 8))
+    fresh = pk.take(slice(0, 64)).clone()
+    refilled = mcrt._refill_packets(pk, fresh, n_active)
+    return refilled, mcrt._compact_packets(refilled, 64)
+
+
+def test_walk_launch_patched_struct_equals_fresh_one():
+    """A WalkLaunch built once and prepared on the packets of a refill and
+    then of a compaction holds, field for field, the struct of one built
+    fresh for those packets (all but the counters, which each object
+    owns)."""
+    m, model, ws, pk, tl = _launch_setup("cpu")
+    once = kernels.WalkLaunch(ws, tl)
+    once.prepare(pk, 64)
+    for new in _after_refill_and_compaction(model, pk.clone(), m):
+        got = struct_fields(once.prepare(new, 64))
+        want = struct_fields(
+            kernels.WalkLaunch(ws, tl).prepare(new, 64))
+        assert got.pop("counters") == once.counters.data_ptr()
+        want.pop("counters")
+        assert got == want
+        assert got["B"] == new.x.shape[0]
+        assert got["x"] == new.x.data_ptr()
+
+
+def test_fold_launch_patched_struct_equals_fresh_one():
+    m, model, _, pk, tl = _launch_setup("cpu")
+    fates = torch.zeros(mcrt.N_CODES, dtype=torch.int64)
+    once = kernels.FoldLaunch(model, tl, 5)
+    once.prepare(pk)
+    for new in _after_refill_and_compaction(model, pk.clone(), m):
+        got = struct_fields(once.prepare(new, fates))
+        want = struct_fields(
+            kernels.FoldLaunch(model, tl, 5).prepare(new, fates))
+        assert got == want
+        assert got["fates"] == fates.data_ptr()
+        assert got["status"] == new.status.data_ptr()
+    assert struct_fields(once.prepare(pk))["fates"] is None
+
+
+def test_launch_objects_refuse_other_tallies():
+    m, model, ws, pk, tl = _launch_setup("cpu")
+    other = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                                 device="cpu")
+    walk = kernels.WalkLaunch(ws, tl)
+    fold = kernels.FoldLaunch(model, tl, 5)
+    with pytest.raises(ValueError, match="flux"):
+        walk(pk, tl._replace(flux=other.flux), 4)
+    with pytest.raises(ValueError, match="collector_img"):
+        fold(pk, tl._replace(collector_img=other.collector_img))
+    # the same tensors in another tuple are the same tallies
+    walk(pk, mcrt.McTallies(*tl), 1)
+    fold(pk, mcrt.McTallies(*tl))
+
+
+def test_launch_objects_refuse_wrongly_typed_packets():
+    _, model, ws, pk, tl = _launch_setup("cpu")
+    walk = kernels.WalkLaunch(ws, tl)
+    fold = kernels.FoldLaunch(model, tl, 5)
+    with pytest.raises(TypeError, match="packets.x"):
+        walk.prepare(pk._replace(x=pk.x.double()), 4)
+    with pytest.raises(TypeError, match="packets.status"):
+        fold.prepare(pk._replace(status=pk.status.long()))
+    with pytest.raises(ValueError, match="packets.vz"):
+        fold.prepare(pk._replace(vz=pk.vz[:-1]))
+    with pytest.raises(TypeError, match="fates"):
+        fold.prepare(pk, torch.zeros(mcrt.N_CODES, dtype=torch.int32))
+    with pytest.raises(ValueError, match="max_steps"):
+        walk.prepare(pk, 0)
+
+
+def _fold_batches(pk):
+    """K4's edge batches from a walked batch: as it is, all padding, and
+    with no terminal lane (escaped and water-destroyed lanes made
+    destroyed)."""
+    pad = pk._replace(status=torch.full_like(pk.status, mcrt.ST_PADDING))
+    st = pk.status.clone()
+    st[(st == mcrt.ST_ESCAPED) | (st == mcrt.ST_DESTR_WATER)] = \
+        mcrt.ST_DESTRUCTED
+    return {"walked": pk, "padding": pad,
+            "no_terminal": pk._replace(status=st)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1024, 4096, 262144])
+def test_fold_matches_plain_and_counts_fates_on_card(cuda_device, B):
+    """K4 against its plain twin at B lanes walked 64 steps, and on the
+    same lanes all padding and with no terminal lane: every bin within
+    1e-5 of its array's largest (f32 atomics in another order), and the
+    fate counts exact."""
+    m, model, ws, pk, tl = _launch_setup(cuda_device, n_packets=B)
+    kernels.mc_walk(ws, pk, tl, 64)
+    for name, lanes in _fold_batches(pk).items():
+        tk = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                                  device=cuda_device)
+        tp = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                                  device=cuda_device)
+        fk = torch.zeros(mcrt.N_CODES, dtype=torch.int64,
+                         device=cuda_device)
+        fp = torch.zeros_like(fk)
+        kernels.reset_launches()
+        kernels.fold_terminal(model, lanes, tk, 5, fk)
+        mcrt._fold_terminal_plain(model, lanes, tp, 5, fp)
+        torch.cuda.synchronize()
+        assert kernels.fold_terminal.launches == 1
+        for f in ("collector", "collector_img", "ab_en_water"):
+            a, b = getattr(tk, f), getattr(tp, f)
+            assert float((a - b).abs().max()) <= \
+                1e-5 * float(b.abs().max()), (name, f)
+        assert torch.equal(fk, fp), name
+        assert mcrt.fates_of_counts(fk.tolist()) == \
+            mcrt.packet_fates(lanes.status), name
+        if name != "walked":
+            assert float(tk.collector.abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_fold_plan_on_card(cuda_device):
+    """K4's grid comes from the device: at full width as many CTAs as its
+    occupancy allows on every SM, at most what the lanes need (FOLD_V
+    lanes a thread), one CTA for a few lanes."""
+    m, model, ws, pk, tl = _launch_setup(cuda_device, n_packets=262144)
+    fold = kernels.FoldLaunch(model, tl, 5)
+    fold.prepare(pk)
+    plan = fold.plan()
+    assert plan["sms"] == torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    need = -(-262144 // (kernels.FOLD_V * plan["threads"]))
+    assert plan["grid"] == min(need, plan["blocks_per_sm"] * plan["sms"])
+    fold.prepare(pk.take(slice(0, 129)))
+    assert fold.plan()["grid"] == 1
+
+
+@pytest.mark.cuda
+def test_walk_launch_reused_across_packets_on_card(cuda_device):
+    """One WalkLaunch over a pass's Packets objects (a walk chunk, a
+    refill, a compaction) walks each as kernels.mc_walk does, and zeroes
+    its counters before each launch."""
+    m, model, ws, pk, tl = _launch_setup(cuda_device, n_packets=4096)
+    t1 = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), 1, 5,
+                              device=cuda_device)
+    once = kernels.WalkLaunch(ws, tl)
+    a, b = pk.clone(), pk.clone()
+    n_once = [int(once(a, tl, 16))]
+    n_fresh = [int(kernels.mc_walk(ws, b, t1, 16))]
+    fresh = pk.take(slice(0, 1024)).clone()
+    a = mcrt._refill_packets(a, fresh, n_once[0])
+    b = mcrt._refill_packets(b, fresh.clone(), n_fresh[0])
+    for pa, pb in ((a, b), (mcrt._compact_packets(a, 1024),
+                            mcrt._compact_packets(b, 1024))):
+        n_once.append(int(once(pa, tl, 16)))
+        n_fresh.append(int(kernels.mc_walk(ws, pb, t1, 16)))
+        agree = (pa.status == pb.status) & (pa.cell == pb.cell)
+        assert float(agree.float().mean()) >= 0.99
+    assert all(abs(x - y) <= 0.01 * 4096 for x, y in zip(n_once, n_fresh))
+    assert _totals_rel(tl.flux, t1.flux) <= 1e-3

@@ -121,18 +121,29 @@ def disk():
     return model, lam[pick], en[pick] / en.max()
 
 
-def _walk_both(jmodel, lam, en, steps, use_mrw):
+def _jax_walk(jmodel, lam, en, steps, use_mrw):
+    """JAX-launched packets (as the port's, on the CPU: the JAX walk
+    donates its own), and the JAX walk of them over `steps` steps:
+    (packets, walked JAX packets, step tallies)."""
     pk = jmcrt.launch_packets(jmodel, jax.random.PRNGKey(5),
                               jnp.asarray(lam), jnp.asarray(en), 0.0, 0.95)
     tpk = convert.packets(pk, "cpu")
+    n, nlam = jmodel.cells.rmin.shape[0], len(jmodel.tab.lam)
+    nd = jmodel.cells.rho_dust.shape[0]
+    _, jpk, jtl = jmcrt._mc_walk(
+        jmodel, jax.random.PRNGKey(0), pk,
+        jmcrt.McTallies.zeros(n, nlam, nd, 5), max_steps=steps,
+        n_quantile=NQ, finalize=False, use_mrw=use_mrw, save_counts=True,
+        save_dir=True)
+    return tpk, jpk, jtl
+
+
+def _walk_both(jmodel, lam, en, steps, use_mrw):
+    tpk, jpk, jtl = _jax_walk(jmodel, lam, en, steps, use_mrw)
     tmodel = torch_model(jmodel, "cpu")
     n, nlam = tmodel.cells.rmin.shape[0], len(jmodel.tab.lam)
     nd = tmodel.cells.rho_dust.shape[0]
     kw = dict(use_mrw=use_mrw, save_counts=True, save_dir=True)
-    _, jpk, jtl = jmcrt._mc_walk(
-        jmodel, jax.random.PRNGKey(0), pk,
-        jmcrt.McTallies.zeros(n, nlam, nd, 5), max_steps=steps,
-        n_quantile=NQ, finalize=False, **kw)
     ws = tmcrt.WalkSetup(tmodel, NQ)
     # both walks read the same Lyman-alpha table (the port builds its
     # own in f64; tests/test_torch_mc_tables.py compares the two)
@@ -193,6 +204,112 @@ def test_walk_matches_jax(case, steps, use_mrw, request):
     np.testing.assert_allclose(db, da, rtol=tol)
     if use_mrw and steps > 1 and case == "gray":
         assert float(np.asarray(jtl.mrw_path).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def walked16(disk):
+    """The packets of a 16-step JAX walk, for the gray and disk cases."""
+    return {"gray": (_gray()[0],) + _jax_walk(*_gray(), 16, True)[1:2],
+            "disk": (disk[0],) + _jax_walk(*disk, 16, True)[1:2]}
+
+
+@pytest.mark.parametrize("case,lanes", [
+    ("gray", "walked"), ("disk", "walked"), ("disk", "padding"),
+    ("disk", "no_escaped")])
+def test_fold_terminal_matches_jax(case, lanes, walked16):
+    """K4's plain twin (_fold_terminal_plain) against the JAX
+    _fold_terminal on the packets of a 16-step JAX walk: as walked, with
+    every third lane made compaction padding, and with no escaped lane.
+    Tolerance: the collector, collector_img and ab_en_water totals within
+    1e-6 relative (f32 adds in another order) on every lane, and every
+    bin within 1e-5 of its array's largest on the lanes that both
+    packages put in the same wavelength bin.  A lane on a bin edge may
+    fall on the other side of it: re-emitted lanes carry a wavelength of
+    the grid itself, and XLA's and torch's f32 log differ by an ulp
+    there, so a whole group of them can move one bin (16 of 2589 escaped
+    lanes at 94239.5 A in the disk case).  Such lanes must be at most 1%
+    of the escaped ones and each exactly one bin off.  The twin's fate
+    counter equals packet_fates on the same lanes."""
+    from rac2d_tpu.ops import optics as joptics
+    from rac2d_torch.ops import optics as toptics
+    jmodel, jpk = walked16[case]
+    tmodel = torch_model(jmodel, "cpu")
+    st = np.array(jpk.status)
+    if lanes == "padding":
+        st[::3] = tmcrt.ST_PADDING
+    elif lanes == "no_escaped":
+        st[st == tmcrt.ST_ESCAPED] = tmcrt.ST_DESTRUCTED
+    esc = st == tmcrt.ST_ESCAPED
+    jbin = np.asarray(joptics.lam_to_bin(jmodel.tab.lam_seg, jpk.lam))
+    tbin = toptics.lam_to_bin(tmodel.tab.lam_seg,
+                              torch.as_tensor(np.array(jpk.lam)),
+                              False).numpy()
+    edge = esc & (jbin != tbin)
+    assert edge.sum() <= 0.01 * max(esc.sum(), 1)
+    assert (np.abs(jbin - tbin)[edge] == 1).all()
+    n, nlam = jmodel.cells.rmin.shape[0], len(jmodel.tab.lam)
+    nd = jmodel.cells.rho_dust.shape[0]
+
+    def both(status, fates=None):
+        pk = jpk._replace(status=jnp.asarray(status))
+        jtl = jmcrt._fold_terminal(jmodel, pk,
+                                   jmcrt.McTallies.zeros(n, nlam, nd, 5), 5)
+        tl = tmcrt.McTallies.zeros(n, nlam, nd, 5, device="cpu")
+        tmcrt._fold_terminal_plain(tmodel, convert.packets(pk, "cpu"), tl,
+                                   5, fates)
+        return jtl, tl
+
+    fates = torch.zeros(tmcrt.N_CODES, dtype=torch.int64)
+    jtl, tl = both(st, fates)
+    # the same lanes without those on a bin edge (made destroyed: not
+    # folded)
+    jtl_in, tl_in = both(np.where(edge, tmcrt.ST_DESTRUCTED, st))
+    assert (int(esc.sum()) == 0) == (lanes == "no_escaped")
+    for f in ("collector", "collector_img", "ab_en_water"):
+        a = np.asarray(getattr(jtl, f), np.float64)
+        b = getattr(tl, f).double().numpy()
+        assert abs(a.sum() - b.sum()) <= 1e-6 * abs(a.sum()), f
+        a = np.asarray(getattr(jtl_in, f), np.float64)
+        b = getattr(tl_in, f).double().numpy()
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max(), f
+    if esc.any():
+        assert float(tl.collector.sum()) > 0
+    np.testing.assert_array_equal(
+        fates.numpy(), np.bincount(st, minlength=tmcrt.N_CODES))
+    assert tmcrt.fates_of_counts(fates.tolist()) == \
+        tmcrt.packet_fates(torch.as_tensor(st))
+
+
+def test_streamed_fates_keep_their_bookkeeping(monkeypatch):
+    """The fates of mc_pass_streamed, now counted by the fold into a device
+    counter read once, equal the bookkeeping of packet_fates at each fold:
+    a retired batch counts its terminal lanes (not "active"), the final
+    batch every lane, ST_PADDING never; on a pass with padding in its
+    pool, refills, compactions and lanes still walking at its step cap."""
+    model, tab, _ = _uniform_sphere_model(tau_half=20.0)
+    tmodel = torch_model(model, "cpu")
+    seen = []
+    plain = tmcrt._fold_terminal_plain
+
+    def fold(model, pk, tallies, n_mu, fates=None):
+        seen.append(tmcrt.packet_fates(pk.status))
+        return plain(model, pk, tallies, n_mu, fates)
+    monkeypatch.setattr(tmcrt, "_fold_terminal_plain", fold)
+    N = 2000
+    lam, en = np.full(N, 3.0e5), np.ones(N)
+    stats = {}
+    _, _, fates = tmcrt.mc_pass_streamed(
+        tmodel, torch.Generator().manual_seed(3), lam, en, 0.0, 1.0,
+        tmcrt.McTallies.zeros(1, len(tab.lam), 1, 5, device="cpu"),
+        max_batch=256, steps_per_call=16, max_steps=640, use_mrw=True,
+        compact_floor=64, stats=stats)
+    want = {k: sum(f[k] for f in seen[:-1]) + seen[-1][k]
+            if k != "active" else seen[-1][k] for k in fates}
+    assert fates == want
+    assert stats["refills"] > 2 and stats["compactions"] >= 1
+    assert fates["active"] > 0
+    assert sum(fates.values()) == N
+    assert stats["host_reads"] == stats["chunks"] + 1
 
 
 @pytest.mark.parametrize("kind", ["grazing", "corner"])
