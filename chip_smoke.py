@@ -9,14 +9,16 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      sm_90a) and print the compiler's register/shared-memory report;
   3. kernels K1 (blocked LU factor) and K2 (block substitution) against
      their plain PyTorch versions on the card, at the shapes of the main
-     path: B=256 lanes, n=485 (padded to N=512), on row/column-equilibrated
+     path: B=256 lanes (phase 5's window) and B=RUN_CHUNK=1024 lanes
+     (phase 11's), n=485 (padded to N=512), on row/column-equilibrated
      I - cJ matrices made from a numpy seed; then K1 and K2 at B in {1, 3}
      and n in {1, 64, 65, 130, 512, 600} (600: K1 takes the trailing
      columns in two slabs), on matrices whose pivots reach the 1e-20
      floor (the floored pivot must keep its sign), and K2 on factors at
      B in {1, 256} and n in {65, 485, 600} whose unneeded entries are NaN
      (x must stay finite and equal to x on the clean factor);
-  4. time K1/K2, their plain versions and their library yardsticks
+  4. time K1/K2 at both main-path shapes, their plain versions and their
+     library yardsticks
      (torch.linalg.lu_factor_ex(pivot=False), torch.linalg.lu_solve with
      identity pivots; CUDA events, in turns plain, kernel, library,
      library, kernel, plain; beside them the host's time to enqueue a
@@ -29,8 +31,8 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      shipped network (NEQ=485), window W=256, per-lane retry ladder of 3
      levels, over a pool of 512 random disk cells (the bench.py recipe,
      seed 0) plus the 3 production cells of tests/test_chem_production.py,
-     1e-8 -> 1e3 yr; the kernels' launch counts over this run must be > 0
-     (printed with the BDF round count and launches per round), and the
+     1e-8 -> T_MAX = 1 yr; the kernels' launch counts over this run must
+     be > 0 (printed with the BDF round count and launches per round), and the
      final states must be finite, physical and conserve elements;
   6. 8 of those lanes re-solved with the plain LU on the card: key
      species within 5% of phase 5's final states;
@@ -82,16 +84,39 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      8192 steps) with the kernels and with the plain walk and fold, from
      the same cells and generator seed: median |dTdust|/Tdust < 3% over
      active cells, total absorbed energy in active cells within 2%, and
-     en_gain finite in every cell.
+     en_gain finite in every cell;
+ 11. the main path: DiskModel(cfg, "cuda").prepare() then run(n_iter=1)
+     on the bench disk with the JAX package's chemistry defaults
+     (evolT=True, chem_stream=True, the 4-level ladder): the initial
+     run_mc (2 passes of 1e6 packets, K3/K4), reduce_fields, the columns
+     and self-shielding through the path matrices, env assembly, and the
+     pool sweep over all 4557 active cells at NEQ=485 (K1/K2) to
+     RUN_T_MAX in windows of RUN_CHUNK, with a sweep wall budget of
+     RUN_BUDGET_S (chunk_wall_s from it); then the convergence
+     bookkeeping.  It prints the prepare and path-trace times, the nnz of
+     both path matrices, the depth cuts, the stage timing line, K1-K4
+     launches during run (each must be > 0), the MC fates, the converged
+     fraction and the cells at quality 512 (at most 5% of active cells);
+     it fails on a non-finite X or Tgas, an abundance >= 1.5 or Tgas
+     outside (2, 3e4) K in a clean cell, element drift >= 1%, max H2 over
+     active cells <= 0.1, Tdust outside [TdustMin, TdustMax], or any
+     column, shielding factor or Av_toISM of prepare_sweep_fields on the
+     card more than 1e-12 relative from the same computed on the CPU from
+     the same X.
 Phases 7 and 8 also print the bounds of K3 and K4 (bytes: for K3 the
 packet state read and written once, the tables read once, the tally bins
 the run touched read and written once; for K4 the two bases above); no
 single PyTorch call computes either.
-Phases 5-6 run to T_MAX (1e2 yr) to leave time for the MC phases.
+Phases 5-6 run to T_MAX = 1 yr (1e2 yr until phase 11 was added): at 1e2
+yr they took 644 s on an H100 80GB HBM3 (700 W) and the whole script
+1018 s.
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
 for each TPU probe kernel that K3 or K4 replaces, each with its time,
-bound, plain and library times and launches; K3/K4 rows add device_ms,
-the queued device time) and the card's nvidia-smi
+bound, plain and library times and launches: `launches` over phase 11's
+run, `launches_slice` over phase 5 (K1/K2) or phase 9 (K3/K4); the K1/K2
+rows hold their check and times at phase 11's window B=RUN_CHUNK and,
+under "slice", at phase 5's B=W; K3/K4
+rows add device_ms, the queued device time) and the card's nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.  Where a pass's
 host time goes: mc_pass_profile.py (run by hand).
 """
@@ -106,7 +131,7 @@ import torch
 
 D2G = 2.8e-12
 W = 256
-T_MAX = 1e2
+T_MAX = 1.0
 RTOL0, ATOL0 = 1e-4, 1e-30
 # production cells (tests/test_chem_production.py COUPLED_CELLS)
 COUPLED_CELLS = [
@@ -299,25 +324,34 @@ def k1_k2_case(A, b):
     return fac, ref, x, xr, rel
 
 
-def check_kernels(dev, B=W, n=485):
-    """Phase 3: K1/K2 vs their plain versions on the card."""
-    from rac2d_torch.ops import blocklu, kernels
-    t0 = time.time()
+def check_shape(dev, B, n=485):
+    """Phase 3 at one main-path shape: K1/K2 vs their plain versions on
+    B lanes of n x n Newton matrices."""
     A, b = newton_matrices(B, n, 0, dev)
     fac, ref, x, xr, rel = k1_k2_case(A, b)
     err_fac = max(float((getattr(fac, k) - getattr(ref, k)).abs().amax())
                   for k in ("lu", "linv", "uinv"))
     for name in ("lu", "linv", "uinv"):
-        say(f"phase 3 K1 {name}: max rel {rel[name]:.3e} (tol 1e-4)")
+        say(f"phase 3 B={B} K1 {name}: max rel {rel[name]:.3e} (tol 1e-4)")
         if not rel[name] <= 1e-4:
-            raise Fail(f"phase 3: K1 {name} disagrees with block_lu")
+            raise Fail(f"phase 3: K1 {name} disagrees with block_lu at "
+                       f"B={B}")
     err_x = float((x - xr).abs().amax())
     res = float(((A.double() @ x.double()[..., None])[..., 0]
                  - b.double()).abs().amax())
-    say(f"phase 3 K2: max abs diff {err_x:.3e}, max rel {rel['x']:.3e} "
-        f"(tol 1e-4); max |A x - b| {res:.3e}")
+    say(f"phase 3 B={B} K2: max abs diff {err_x:.3e}, max rel "
+        f"{rel['x']:.3e} (tol 1e-4); max |A x - b| {res:.3e}")
     if not rel["x"] <= 1e-4 or not np.isfinite(res):
-        raise Fail("phase 3: K2 disagrees with block_lu_solve")
+        raise Fail(f"phase 3: K2 disagrees with block_lu_solve at B={B}")
+    return dict(A=A, b=b, fac=fac, ref=ref, err_fac=err_fac, err_x=err_x)
+
+
+def check_kernels(dev, B=W, n=485):
+    """Phase 3: K1/K2 vs their plain versions on the card, at phase 5's
+    shape and at the edges of the shape range."""
+    from rac2d_torch.ops import blocklu, kernels
+    t0 = time.time()
+    out = check_shape(dev, B, n)
     # the edges of the shape range: one lane, a few lanes, n from 1 to
     # a whole number of panels and just past one
     worst = {}
@@ -361,7 +395,7 @@ def check_kernels(dev, B=W, n=485):
         raise Fail("phase 3: K2 reads an entry the function does not need")
     say(f"phase 3 done: B={B} n={n} and {len(worst) + 1 + len(poison)} more "
         f"cases, {time.time() - t0:.1f} s")
-    return dict(A=A, b=b, fac=fac, ref=ref, err_fac=err_fac, err_x=err_x)
+    return out
 
 
 def k1_work(B, n, N):
@@ -586,9 +620,9 @@ MC_STEP_CAP = 100_000     # a pass's step cap (DiskModel.mc_pass max_steps)
 MC_STEPS_CHECK = 8192
 
 
-def bench_disk(dev):
+def bench_disk(dev, **chem):
     """The production-shaped disk of bench.py:76-104 (build_bench_model)
-    on the card."""
+    on the card; chem: DiskConfig chemistry and iteration fields."""
     from rac2d_torch import defaults
     from rac2d_torch.models import density, driver
     from rac2d_torch.models.grid import GridConfig
@@ -605,7 +639,7 @@ def bench_disk(dev):
         init_abundances_file=defaults.INIT_ABUNDANCES,
         h2o_cross_file=defaults.H2O_PHOTOXS,
         mc=optics.McConfig(nph=MC_NPH, nlen_lut=256, n_quantile=128),
-        nph_per_pass=MC_NPH, n_mc_passes=2)
+        nph_per_pass=MC_NPH, n_mc_passes=2, **chem)
     m = driver.DiskModel(cfg, dev)
     m.prepare()
     return m
@@ -1073,6 +1107,154 @@ def recheck_plain(m):
         raise Fail("phase 10: kernel and plain passes disagree")
 
 
+# --------------------------------------------------------------------
+# the main path: DiskModel.run on the bench disk (phase 11)
+
+RUN_T_MAX = 1e-4          # yr; production 1e6
+RUN_CHUNK = 1024          # the pool window (chem_chunk); production 256
+RUN_BUDGET_S = 360.0      # the sweep's wall budget: chunk_wall_s x chunks
+#                           x nlocal_iter (DiskModel._pool_sweep)
+RUN_MAX_S = 300.0         # what phase 11 aims to take
+
+
+def rel_diff(a, b):
+    """(max |a - b| / max(|a|, |b|) over the entries where that scale is
+    a normal float64, count of entries below it, where both are 0 or
+    subnormal and their difference is held to the smallest normal)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = torch.maximum(a.abs(), b.abs())
+    tiny = torch.finfo(torch.float64).tiny
+    d = (a - b).abs()
+    big = scale >= tiny
+    rel = float((d[big] / scale[big]).max()) if bool(big.any()) else 0.0
+    if bool((d[~big] > tiny).any()):
+        rel = float("inf")
+    return rel, int((~big).sum())
+
+
+def shielding_card_vs_cpu(m):
+    """prepare_sweep_fields on the card and on a CPU copy of the model
+    (path matrices and Visser table on the CPU, the same X, Tgas and
+    fields): the largest relative difference of each column, shielding
+    factor and Av_toISM."""
+    import copy
+    from rac2d_torch.io import tables
+    from rac2d_torch.ops import columns
+    m.prepare_sweep_fields()
+    h = copy.copy(m)
+    h.device = torch.device("cpu")
+    h.W_star, h.W_ism = (columns.PathMatrix(W.rows.cpu(), W.cols.cpu(),
+                                            W.w.cpu(), W.n_cells)
+                         for W in (m.W_star, m.W_ism))
+    h._visser = tables.VisserCOShielding("cpu")
+    h.prepare_sweep_fields()
+    pairs = {"Av_toISM": (m._Av_ism, h._Av_ism)}
+    for f in ("toISM", "toStar", "Ncol_toISM", "Ncol_toStar"):
+        pairs[f] = (getattr(m._shield, f), getattr(h._shield, f))
+    for d in ("colden_toISM", "colden_toStar"):
+        for k in getattr(m._shield, d):
+            pairs[f"{d}[{k}]"] = (getattr(m._shield, d)[k],
+                                  getattr(h._shield, d)[k])
+    if m._zetaX_ncol is not None:
+        pairs["zetaX_ncol"] = (m._zetaX_ncol, h._zetaX_ncol)
+    return {k: rel_diff(a, b) for k, (a, b) in pairs.items()}
+
+
+def run_model(dev):
+    """Phase 11: DiskModel(cfg).prepare() then run(n_iter=1) on the bench
+    disk: the initial run_mc (K3, K4), reduce_fields, columns and
+    shielding through the path matrices, env assembly, the pool sweep over
+    every active cell (K1, K2), the convergence bookkeeping."""
+    from rac2d_torch.models import driver
+    from rac2d_torch.ops import kernels
+    t_ph = time.time()
+    m = bench_disk(dev, n_iter=1, evolT=True, chem_stream=True,
+                   t_max=RUN_T_MAX, chem_chunk=RUN_CHUNK)
+    t_prep = time.time() - t_ph
+    use = m.grid.using
+    n_act = int(use.sum())
+    W = min(RUN_CHUNK, n_act)
+    n_chunks = -(-n_act // W)
+    m.cfg.chunk_wall_s = RUN_BUDGET_S / (n_chunks * m.cfg.nlocal_iter)
+    say(f"phase 11 setup: DiskModel.prepare {t_prep:.2f} s (path trace "
+        f"{m.t_trace:.3f} s); {m.grid.n_cells} cells, {n_act} active, NEQ "
+        f"{m.ode.neq}; path matrices nnz: star {len(m.W_star.w)}, ISM "
+        f"{len(m.W_ism.w)}")
+    say(f"phase 11 depth cuts: {MC_NPH} packets x {m.cfg.n_mc_passes} MC "
+        f"passes (production 4e6 x 3), t_max {RUN_T_MAX:g} yr (production "
+        f"{1e6:g}), chem_chunk {W} (production 256), n_iter 1; "
+        f"chunk_wall_s {m.cfg.chunk_wall_s:.3f} s, a sweep budget of "
+        f"{RUN_BUDGET_S:g} s over {n_chunks} windows x "
+        f"{m.cfg.nlocal_iter} levels; the window refilled every "
+        f"{driver.POOL_ROUNDS_PER_CALL} BDF rounds")
+    kernels.reset_launches()
+    t0 = time.time()
+    m.run(n_iter=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"K1": kernels.block_lu_factor.launches,
+                "K2": kernels.block_lu_solve.launches,
+                "K3": kernels.mc_walk.launches,
+                "K4": kernels.fold_terminal.launches}
+    st = m.stage_times[0]
+    res = m.pool_result
+    say(f"phase 11 run: {wall:.2f} s; stage timing: initial mc "
+        f"{m.t_mc_initial:.2f} s, " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in st.items())
+        + f"; pool sweep {int(res.n_steps.sum())} steps, {res.n_rounds} "
+        f"BDF rounds, {int(res.n_lu.sum())} lane-LUs")
+    for ip, ms in enumerate(m.mc_stats):
+        say(f"phase 11 MC pass {ip + 1}: {ms['packets']} packets in "
+            f"{ms['wall_s']:.2f} s, {ms['chunks']} chunks, fates "
+            f"{ms['fates']}")
+    say("phase 11 launches during run: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    q512 = int(((m.quality & 512) > 0)[use].sum())
+    say(f"phase 11 chemistry: converged {int(m.converged_cells.sum())}/"
+        f"{n_act} ({m.converged_cells.mean():.1%}); cells at quality 512: "
+        f"{q512} (tol {0.05 * n_act:.0f}, 5%)")
+    if min(launches.values()) <= 0:
+        raise Fail("phase 11: run did not launch every kernel "
+                   f"({launches})")
+    if q512 > 0.05 * n_act:
+        raise Fail("phase 11: more than 5% of active cells at quality 512")
+    X, Tg = m.X, m.Tgas
+    if not (np.isfinite(X).all() and np.isfinite(Tg).all()):
+        raise Fail("phase 11: non-finite X or Tgas")
+    clean = use & (m.quality == 0)
+    drift = element_drift(m.net, m.y0, X[:, clean].T)
+    h2 = float(X[m.net.idx["H2"], use].max())
+    td = m.Tdust[use]
+    say(f"phase 11 checks over {int(clean.sum())} clean cells: max "
+        f"abundance {X[:, clean].max():.4g} (tol < 1.5), Tgas in "
+        f"[{Tg[clean].min():.4g}, {Tg[clean].max():.4g}] K (tol (2, 3e4)), "
+        f"max element drift {drift.max():.2e} (tol 1e-2); max H2 over "
+        f"active cells {h2:.4g} (tol > 0.1); Tdust in [{td.min():.4g}, "
+        f"{td.max():.4g}] K")
+    if (X[:, clean] >= 1.5).any() \
+            or not ((Tg[clean] > 2.0) & (Tg[clean] < 3e4)).all():
+        raise Fail("phase 11: unphysical state in clean cells")
+    if not drift.max() < 0.01:
+        raise Fail("phase 11: elements drift by 1% or more")
+    if not h2 > 0.1:
+        raise Fail("phase 11: no H2 above 0.1")
+    if not (np.isfinite(td).all() and td.min() >= m.mc_cfg.TdustMin
+            and td.max() <= m.mc_cfg.TdustMax):
+        raise Fail("phase 11: Tdust outside [TdustMin, TdustMax]")
+    t0 = time.time()
+    rel = shielding_card_vs_cpu(m)
+    worst = max(r for r, _ in rel.values())
+    say("phase 11 columns and shielding, card vs CPU from the final X "
+        "(max rel; entries both below the smallest normal float64): "
+        + ", ".join(f"{k} {r:.2e} ({n})" for k, (r, n) in rel.items())
+        + f" (tol 1e-12); {time.time() - t0:.1f} s")
+    if not worst <= 1e-12:
+        raise Fail("phase 11: columns on the card differ from the CPU's")
+    t_all = time.time() - t_ph
+    say(f"phase 11 done: {t_all:.1f} s (aim <= {RUN_MAX_S:g} s)")
+    return launches
+
+
 def main():
     t_all = time.time()
     # ---- 1. the card ----
@@ -1102,18 +1284,26 @@ def main():
                     or "spill" in line:
                 say("  " + line.strip())
         # ---- 3, 4. K1/K2 vs plain, times; 5, 6. the chemistry slice ----
+        # at phase 5's window W and at phase 11's, RUN_CHUNK
         chk = check_kernels(dev)
         tm = time_kernels(**chk)
         del chk["A"], chk["b"], chk["fac"], chk["ref"]
+        chk_run = check_shape(dev, RUN_CHUNK)
+        tm_run = time_kernels(**chk_run)
+        del chk_run["A"], chk_run["b"], chk_run["fac"], chk_run["ref"]
+        torch.cuda.empty_cache()
         launches, _ = run_slice(dev)
         for name, key, replaces, err, nl in (
-                ("blocklu_factor", "K1", K1_REPLACES, chk["err_fac"],
+                ("blocklu_factor", "K1", K1_REPLACES, "err_fac",
                  launches[0]),
-                ("blocklu_solve", "K2", K2_REPLACES, chk["err_x"],
+                ("blocklu_solve", "K2", K2_REPLACES, "err_x",
                  launches[1])):
             rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                         "replaces": replaces, "launches": nl,
-                         "max_abs_err": err, **tm[key]})
+                         "replaces": replaces, "B": RUN_CHUNK,
+                         "max_abs_err": chk_run[err], **tm_run[key],
+                         "launches_slice": nl,
+                         "slice": {"B": W, "max_abs_err": chk[err],
+                                   **tm[key]}})
         # ---- 7-10. the Monte Carlo dust pass ----
         t0 = time.time()
         m = bench_disk(dev)
@@ -1123,13 +1313,20 @@ def main():
         del k3["pk"], k3["model"]
         mc_launches = run_mc_slice(m)
         recheck_plain(m)
-        res = {"mc_walk": (k3, mc_launches[0]),
-               "fold_terminal": (k4, mc_launches[1])}
+        del m
+        torch.cuda.empty_cache()
+        # ---- 11. the main path: DiskModel.run ----
+        run_launches = run_model(dev)
+        for row, key in zip(rows, ("K1", "K2")):
+            row["launches"] = run_launches[key]
+        res = {"mc_walk": (k3, mc_launches[0], run_launches["K3"]),
+               "fold_terminal": (k4, mc_launches[1], run_launches["K4"])}
         for row, replaces, name in PROBES:
-            r, n = res[name]
+            r, n, n_run = res[name]
             rows.append({"name": f"{name} ({row})", "route": "cuda",
                          "source": MC_SOURCE, "replaces": replaces,
-                         "launches": n, "max_abs_err": r["err"],
+                         "launches": n_run, "launches_slice": n,
+                         "max_abs_err": r["err"],
                          "ms": r["ms"], "device_ms": r["device_ms"],
                          "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": "bytes",

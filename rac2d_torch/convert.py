@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .io.umist import ChemNet
-from .ops import geometry, mcrt, optics
+from .ops import columns, fields, geometry, mcrt, optics
 from .ops.network import Incidence
 from .ops.rates import CellEnv, RateTables
 from .ops.thermal import HcConfig, ThermalBalance, ThermalEnv
@@ -126,3 +126,32 @@ def mc_tallies(t, device="cuda") -> mcrt.McTallies:
     """McTallies in the dtype the JAX object has (f32 during a pass)."""
     return mcrt.McTallies(*(torch.as_tensor(np.array(v), device=device)
                             for v in t))
+
+
+def path_matrix(W, device="cuda") -> columns.PathMatrix:
+    """A PathMatrix with the same COO entries (int64 rows/cols, float64
+    w, in the same order)."""
+    return columns.PathMatrix(
+        rows=torch.as_tensor(np.array(W.rows, dtype=np.int64), device=device),
+        cols=torch.as_tensor(np.array(W.cols, dtype=np.int64), device=device),
+        w=torch.as_tensor(np.array(W.w, dtype=np.float64), device=device),
+        n_cells=int(W.n_cells))
+
+
+def model_state(jmodel, model):
+    """Carry a prepared JAX DiskModel's evolving state into a prepared
+    DiskModel of this package on the same grid, in place: X, Tgas,
+    Tdust, Tdusts and quality (host arrays), and the MC tallies and
+    radiation fields (on the model's device).  Returns the model."""
+    if jmodel.grid.n_cells != model.grid.n_cells:
+        raise ValueError(f"grids differ: {jmodel.grid.n_cells} cells, "
+                         f"{model.grid.n_cells} here")
+    for name in ("X", "Tgas", "Tdust", "Tdusts"):
+        setattr(model, name, np.array(getattr(jmodel, name),
+                                      dtype=np.float64))
+    model.quality = np.array(jmodel.quality, dtype=np.int64)
+    model.tallies = mc_tallies(jmodel.tallies, model.device)
+    model.fields = _namedtuple(jmodel.fields, fields.RadiationFields,
+                               model.device)
+    model.mc_counts = dict(jmodel.mc_counts)
+    return model

@@ -38,7 +38,14 @@ ENTRY_POINTS = [
     ("rac2d_torch.convert", "mc_cells"),
     ("rac2d_torch.convert", "packets"),
     ("rac2d_torch.convert", "mc_tallies"),
+    ("rac2d_torch.convert", "path_matrix"),
+    ("rac2d_torch.ops.columns", "build_path_matrices"),
 ]
+
+# DiskModel methods that build tensors: they take no device of their own
+# and follow the model's, which defaults to the card
+MODEL_METHODS = ["prepare", "run_mc", "prepare_sweep_fields",
+                 "assemble_envs", "chemistry_step", "run"]
 
 
 def _device_param(obj):
@@ -90,6 +97,14 @@ def test_no_other_device_default():
     assert seen > len(ENTRY_POINTS)
 
 
+@pytest.mark.parametrize("name", MODEL_METHODS)
+def test_model_methods_follow_the_model_device(name):
+    from rac2d_torch.models import driver
+    fn = getattr(driver.DiskModel, name)
+    assert "device" not in inspect.signature(fn).parameters, name
+    assert _device_param(driver.DiskModel).default == "cuda"
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs there")
@@ -112,7 +127,9 @@ def test_default_device_raises_without_cuda():
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import rac2d_torch.models.driver, rac2d_torch.ops.odesys, "
-            "rac2d_torch.ops.mcrt\n"
+            "rac2d_torch.ops.mcrt, rac2d_torch.ops.columns, "
+            "rac2d_torch.io.native, rac2d_torch.models.depletion, "
+            "rac2d_torch.convert\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rac2d_tpu'))\n"
