@@ -102,7 +102,41 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      active cells <= 0.1, Tdust outside [TdustMin, TdustMax], or any
      column, shielding factor or Av_toISM of prepare_sweep_fields on the
      card more than 1e-12 relative from the same computed on the CPU from
-     the same X.
+     the same X;
+ 12. the command line and imaging at full width, on phase 11's model:
+     (a) checkpoint.save_state, then load_state into a newly prepared
+     model (X, Tgas, Tdust, Tdusts, quality bit-equal, iiter back); the
+     iteration table through save_iter_npz/load_iter_npz with every
+     PHYS_COLUMNS key the JAX package writes; the SED finite and > 0 in
+     the UV, optical, near-IR and far-IR bands; a 201x201 continuum cube
+     at 1.3 mm and 45 deg, finite, its peak within 3 px of the centre;
+     CO NLTE excitation over every active cell (41 levels; cells
+     converged, Newton steps, populations >= 0 summing to 1 within
+     1e-12; run twice, the first call also loading the card's
+     linear-algebra library); a CO J=2-1 cube 201x201x100 at 45 deg,
+     finite, its spectrum double-peaked and symmetric about the line
+     centre (peak channels mirror images within one channel, heights
+     within 10%, the centre below both); (b) NLTE on 64 of those cells
+     solved again on the CPU (within 1e-6 relative on levels above
+     1e-10, the same cells converged), and 9x9 rays of each cube traced
+     again on the CPU (within 1e-9 of the cube's maximum); (c)
+     `python -m rac2d_torch` (no --device: the card) on the tables of
+     examples/verify_model.toml with t_max 1e-4 yr in one window of 256,
+     per-iteration tables, one analysis point and NLTE lines, --iters 1,
+     then resumed from its checkpoint with --iters 0: both exit 0 and
+     write every output file (iter_0001.npz in the first), every FITS
+     cube parses with the port's reader and is finite, the line cubes
+     are those each log says it wrote, the same in both runs, and the
+     first run's log shows K1-K4 launched; (d) K1-K4 against their plain
+     versions at the shapes that run gave them, on its own model and
+     state (its checkpoint): K1/K2 at its pool window (read from its
+     log), K3/K4 at its pass width, with their times; then one MC pass on
+     that state and one each with the initial Tdust and the initial
+     atomic hydrogen, their walk chunks printed.  The line and continuum
+     cubes print their peak card memory.  Phase 12 aims at <= 180 s.
+     The JAX reader's DiskConfig on the same TOML is compared in the CPU
+     tests only (tests/test_torch_cli.py): this machine need not have
+     JAX.
 Phases 7 and 8 also print the bounds of K3 and K4 (bytes: for K3 the
 packet state read and written once, the tables read once, the tally bins
 the run touched read and written once; for K4 the two bases above); no
@@ -113,10 +147,13 @@ yr they took 644 s on an H100 80GB HBM3 (700 W) and the whole script
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
 for each TPU probe kernel that K3 or K4 replaces, each with its time,
 bound, plain and library times and launches: `launches` over phase 11's
-run, `launches_slice` over phase 5 (K1/K2) or phase 9 (K3/K4); the K1/K2
+run, `launches_slice` over phase 5 (K1/K2) or phase 9 (K3/K4),
+`launches_cli` over phase 12c's command-line run (read from its log; the
+imaging of phases 12a-b launches none); the K1/K2
 rows hold their check and times at phase 11's window B=RUN_CHUNK and,
 under "slice", at phase 5's B=W; K3/K4
-rows add device_ms, the queued device time) and the card's nvidia-smi
+rows add device_ms, the queued device time; every row holds, under
+"cli", its check and times at phase 12c's shape) and the card's nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.  Where a pass's
 host time goes: mc_pass_profile.py (run by hand).
 """
@@ -696,17 +733,51 @@ def touched_bytes(tl, fields):
                * getattr(tl, f).element_size() for f in fields)
 
 
-def check_walk(m, dev):
-    """Phase 7: K3 against _walk_plain on one 64-step chunk."""
+def edge_lanes(ws, zeros, kw, tag):
+    """The hand-built lanes that the JAX walk never ends (ROADMAP.md §3),
+    8 steps through K3 and through the plain walk: whether each left its
+    cell or ended, the same way in both."""
+    from rac2d_torch.ops import kernels, mcrt
+    edge, kinds = mcrt.edge_lanes(ws)
+    c0 = edge.cell.clone()
+    ends = {}
+    for name, walk in (("kernel", kernels.mc_walk),
+                       ("plain", mcrt._walk_plain)):
+        pk, tl = edge.clone(), zeros()
+        gone = torch.zeros_like(c0, dtype=torch.bool)
+        for _ in range(8):
+            walk(ws, pk, tl, 1, **kw)
+            gone |= (pk.cell != c0) | (pk.status != mcrt.ST_ACTIVE)
+        ends[name] = (pk, gone)
+    (pe, ge), (pp, gp) = ends["kernel"], ends["plain"]
+    edge_same = all(torch.equal(getattr(pe, f), getattr(pp, f))
+                    for f in ("status", "cell", "e_count"))
+    edge_ok = bool(ge.all()) and bool(gp.all()) and edge_same
+    say(f"{tag} edge lanes ({kinds.count('grazing')} grazing on a bottom "
+        f"face, {kinds.count('corner')} aimed at a corner): left their cell "
+        f"or ended within 8 steps: kernel {int(ge.sum())}, plain "
+        f"{int(gp.sum())} of {len(kinds)}; status, cell and e_count equal: "
+        f"{edge_same}; kernel status {pe.status.tolist()}")
+    return edge_ok
+
+
+def check_walk(m, dev, tag="phase 7", nph=MC_NPH, batch=MC_BATCH, warm=True,
+               edges=True):
+    """Phase 7: K3 against _walk_plain on one 64-step chunk of `batch`
+    lanes drawn from a pass of `nph` packets, in a warm Tdust(r) (or, with
+    warm=False, the model's own); with `edges`, the hand-built edge lanes
+    too."""
     from rac2d_torch.ops import kernels, mcrt
     t0 = time.time()
-    # a warm Tdust(r) so that re-emission and MRW run: 150 K (r/AU)^-1/2
-    tdust = np.clip(150.0 * m.r_cells ** -0.5, 10.0, 1500.0)[None, :]
-    cells = m.mc_cells()._replace(Tdust=torch.as_tensor(tdust, device=dev))
+    cells = m.mc_cells()
+    if warm:
+        # so that re-emission and MRW run: 150 K (r/AU)^-1/2
+        tdust = np.clip(150.0 * m.r_cells ** -0.5, 10.0, 1500.0)[None, :]
+        cells = cells._replace(Tdust=torch.as_tensor(tdust, device=dev))
     model = mcrt.McModel(m.tab, m.gi, cells, m.cfg.star_mass)
     ws = mcrt.WalkSetup(model, m.mc_cfg.n_quantile)
-    lam, en, _ = m.packet_pool(MC_NPH)
-    pick = np.linspace(0, len(lam) - 1, MC_BATCH).astype(np.int64)
+    lam, en, _ = m.packet_pool(nph)
+    pick = np.linspace(0, len(lam) - 1, batch).astype(np.int64)
     gen = torch.Generator(device=dev).manual_seed(7)
     pk0 = mcrt.launch_packets(model, gen, torch.as_tensor(lam[pick],
                                                           device=dev),
@@ -749,14 +820,14 @@ def check_walk(m, dev):
     bound_ms = (pk_bytes + tab_bytes + tal_bytes) / HBM_BPS * 1e3
     rel = {f: abs(a - b) / max(abs(b), 1e-30) for f, (a, b) in tot.items()}
     fates = mcrt.packet_fates(pk_k.status)
-    say(f"phase 7 K3 walk: B={MC_BATCH}, {MC_STEPS} steps, {m.grid.n_cells} "
+    say(f"{tag} K3 walk: B={batch}, {MC_STEPS} steps, {m.grid.n_cells} "
         f"cells ({int(m.grid.using.sum())} active), nlam {nlam}; active "
         f"after: kernel {na_k}, plain {na_p}; kernel fates {fates}")
-    say(f"phase 7 agreement: status+cell+e_count on {share:.6f} of lanes "
+    say(f"{tag} agreement: status+cell+e_count on {share:.6f} of lanes "
         f"(tol 0.99); RNG words equal on {int(live.sum())} live agreeing "
         f"lanes: {rng_eq}; max rel diff on agreeing lanes (|ref| floored "
         f"at 1e-3) " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
-    say(f"phase 7 tallies: flux total kernel {tot['flux'][0]:.6e} plain "
+    say(f"{tag} tallies: flux total kernel {tot['flux'][0]:.6e} plain "
         f"{tot['flux'][1]:.6e} (rel {rel['flux']:.2e}), mrw_path "
         f"{tot['mrw_path'][0]:.6e} / {tot['mrw_path'][1]:.6e} (rel "
         f"{rel['mrw_path']:.2e}), tol 1e-3")
@@ -774,7 +845,7 @@ def check_walk(m, dev):
         d = float((a - b).abs().max())
         bins[f] = (d, d / max(float(b.abs().max()), 1e-30))
     err = max(d for d, _ in bins.values())
-    say(f"phase 7 per-bin tallies on {int(agree.sum())} agreeing lanes: max "
+    say(f"{tag} per-bin tallies on {int(agree.sum())} agreeing lanes: max "
         f"|kernel - plain| / max |plain|: " + ", ".join(
             f"{f} {r:.2e} (abs {d:.2e})" for f, (d, r) in bins.items())
         + " (tol 1e-4)")
@@ -819,7 +890,7 @@ def check_walk(m, dev):
     _, h_one = kernel_chunks(5, one_call=True)
     k_b = event_ms(launched, 5)
     p_b = event_ms(run(mcrt._walk_plain), 2)
-    say(f"phase 7 times, one {MC_STEPS}-step chunk at B={MC_BATCH}: kernel "
+    say(f"{tag} times, one {MC_STEPS}-step chunk at B={batch}: kernel "
         f"{k_a:.4f}/{k_b:.4f} ms (events around one call), "
         f"{q_a:.4f}/{q_b:.4f} ms on the device (queued; host enqueue "
         f"{h_a:.4f}/{h_b:.4f} ms a call through the launch object, "
@@ -833,42 +904,21 @@ def check_walk(m, dev):
     # K3's launch: registers, shared memory, the persistent grid
     launch.prepare(pk0.clone(), MC_STEPS)
     plan = launch.plan()
-    say(f"phase 7 K3 launch: {plan['regs']} registers and "
+    say(f"{tag} K3 launch: {plan['regs']} registers and "
         f"{plan['local_bytes']} B of local memory a thread, "
         f"{plan['threads']} threads a CTA, {plan['blocks_per_sm']} CTAs per "
         f"SM, grid {plan['grid']} on {plan['sms']} SMs; {plan['smem']} B of "
         f"shared memory a CTA, tables staged in it: none (all {tab_bytes} B "
         f"through __ldg: staging the locate and optics tables measured no "
         f"faster, PERF.md)")
-    # the hand-built lanes that the JAX walk never ends (ROADMAP.md §3),
-    # 8 steps through K3 and through the plain walk
-    edge, kinds = mcrt.edge_lanes(ws)
-    c0 = edge.cell.clone()
-    ends = {}
-    for name, walk in (("kernel", kernels.mc_walk),
-                       ("plain", mcrt._walk_plain)):
-        pk, tl = edge.clone(), zeros()
-        gone = torch.zeros_like(c0, dtype=torch.bool)
-        for _ in range(8):
-            walk(ws, pk, tl, 1, **kw)
-            gone |= (pk.cell != c0) | (pk.status != mcrt.ST_ACTIVE)
-        ends[name] = (pk, gone)
-    (pe, ge), (pp, gp) = ends["kernel"], ends["plain"]
-    edge_same = all(torch.equal(getattr(pe, f), getattr(pp, f))
-                    for f in ("status", "cell", "e_count"))
-    edge_ok = bool(ge.all()) and bool(gp.all()) and edge_same
-    say(f"phase 7 edge lanes ({kinds.count('grazing')} grazing on a bottom "
-        f"face, {kinds.count('corner')} aimed at a corner): left their cell "
-        f"or ended within 8 steps: kernel {int(ge.sum())}, plain "
-        f"{int(gp.sum())} of {len(kinds)}; status, cell and e_count equal: "
-        f"{edge_same}; kernel status {pe.status.tolist()}")
-    say(f"phase 7 done: {time.time() - t0:.1f} s")
+    edge_ok = edge_lanes(ws, zeros, kw, tag) if edges else True
+    say(f"{tag} done: {time.time() - t0:.1f} s")
     if not (share >= 0.99 and rng_eq and rel["flux"] <= 1e-3
             and rel["mrw_path"] <= 1e-3
             and all(r <= 1e-4 for _, r in bins.values())):
-        raise Fail("phase 7: K3 disagrees with its plain version")
+        raise Fail(f"{tag}: K3 disagrees with its plain version")
     if not edge_ok:
-        raise Fail("phase 7: an edge lane neither left its cell nor ended")
+        raise Fail(f"{tag}: an edge lane neither left its cell nor ended")
     return dict(model=model, pk=pk_k, zeros=zeros, err=err,
                 ms=(k_a + k_b) / 2, device_ms=(q_a + q_b) / 2,
                 host_ms=(h_a + h_b) / 2, plain_ms=(p_a + p_b) / 2,
@@ -902,7 +952,7 @@ def fold_bytes(pk, tl):
     return need, nbytes(*(getattr(pk, f) for f in kernels._FOLD_PK)) + bins
 
 
-def check_fold(model, pk, zeros, **_):
+def check_fold(model, pk, zeros, tag="phase 8", **_):
     """Phase 8: K4 against _fold_terminal_plain on phase 7's lanes and on
     a compaction tier of them; its fate counts; its times and bounds."""
     from rac2d_torch.ops import kernels, mcrt
@@ -927,17 +977,17 @@ def check_fold(model, pk, zeros, **_):
         n_esc = int((lanes.status == mcrt.ST_ESCAPED).sum())
         n_wat = int((lanes.status == mcrt.ST_DESTR_WATER).sum())
         n_pad = int((lanes.status == mcrt.ST_PADDING).sum())
-        say(f"phase 8 K4 fold ({name}): {lanes.x.shape[0]} lanes, {n_esc} "
+        say(f"{tag} K4 fold ({name}): {lanes.x.shape[0]} lanes, {n_esc} "
             f"escaped, {n_wat} water-destroyed, {n_pad} padding; max |diff| "
             f"/ max |plain|: " + ", ".join(
                 f"{k} {v:.2e}" for k, v in rels.items()) + " (tol 1e-5); "
             f"fate counts {fk.tolist()} equal to packet_fates {want} and the "
             f"plain fold's: {exact}")
         if not max(rels.values()) <= 1e-5:
-            raise Fail(f"phase 8: K4 disagrees with its plain version "
+            raise Fail(f"{tag}: K4 disagrees with its plain version "
                        f"({name})")
         if not exact:
-            raise Fail(f"phase 8: K4's fate counts are wrong ({name})")
+            raise Fail(f"{tag}: K4's fate counts are wrong ({name})")
         out[name] = (lanes, tk)
 
     def timings(lanes):
@@ -983,7 +1033,7 @@ def check_fold(model, pk, zeros, **_):
         t = timings(lanes)
         need, old = fold_bytes(lanes, tk)
         b_ms, b_old = need / HBM_BPS * 1e3, old / HBM_BPS * 1e3
-        say(f"phase 8 times ({name}, B={lanes.x.shape[0]}): kernel "
+        say(f"{tag} times ({name}, B={lanes.x.shape[0]}): kernel "
             f"{t['k'][0]:.4f}/{t['k'][1]:.4f} ms (events around one call), "
             f"{t['q'][0]:.4f}/{t['q'][1]:.4f} ms on the device (queued; host "
             f"enqueue {t['h'][0]:.4f}/{t['h'][1]:.4f} ms a call through the "
@@ -995,9 +1045,9 @@ def check_fold(model, pk, zeros, **_):
             f", {b_old:.5f} ms ({old} B, all ten lane fields, the earlier "
             f"basis; {b_old / t['ms']:.2%} and {b_old / t['device_ms']:.2%}); "
             f"library call: none")
-        say(f"phase 8 K4 launch ({name}): {t['plan']}")
+        say(f"{tag} K4 launch ({name}): {t['plan']}")
         res[name] = dict(t, bound_ms=b_ms, bound_all_fields_ms=b_old)
-    say(f"phase 8 done: {time.time() - t0:.1f} s")
+    say(f"{tag} done: {time.time() - t0:.1f} s")
     full = res["full"]
     return dict(err=err, ms=full["ms"], device_ms=full["device_ms"],
                 host_ms=full["host_ms"], plain_ms=full["plain_ms"],
@@ -1192,10 +1242,7 @@ def run_model(dev):
     m.run(n_iter=1)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"K1": kernels.block_lu_factor.launches,
-                "K2": kernels.block_lu_solve.launches,
-                "K3": kernels.mc_walk.launches,
-                "K4": kernels.fold_terminal.launches}
+    launches = kernels.launch_counts()
     st = m.stage_times[0]
     res = m.pool_result
     say(f"phase 11 run: {wall:.2f} s; stage timing: initial mc "
@@ -1252,7 +1299,417 @@ def run_model(dev):
         raise Fail("phase 11: columns on the card differ from the CPU's")
     t_all = time.time() - t_ph
     say(f"phase 11 done: {t_all:.1f} s (aim <= {RUN_MAX_S:g} s)")
-    return launches
+    return launches, m
+
+
+# --------------------------------------------------------------------
+# the command line and imaging at full width (phase 12)
+
+IMG_NX = 201              # the cubes' pixels a side
+IMG_NF = 100              # the line cube's channels
+IMG_THETA = 45.0          # inclination (deg): a double-peaked line
+CONT_LAM_A = 1.3e7        # the continuum cube's wavelength (1.3 mm)
+SUB = 9                   # phase 12b: SUB x SUB rays traced on the CPU
+SUB_CELLS = 64            # phase 12b: NLTE cells solved on the CPU
+CLI_TIMEOUT_S = 300       # each command-line run
+PHASE12_AIM_S = 180.0
+# the command line's output files besides the FITS cubes
+CLI_FILES = ["config_used.toml", "log.txt", "iter_final.npz",
+             "checkpoint.npz", "sed.json", "ana/ana_r10_z1.txt"]
+# the keys of PHYS_COLUMNS that the JAX package's save_iter_npz writes
+ITER_PHYS_KEYS = ["rmin", "rmax", "zmin", "zmax", "Tgas", "Tdust", "n_gas",
+                  "Ncol_toISM", "Ncol_toStar", "Av_toStar", "G0_UV_toStar",
+                  "G0_UV_H2phd", "zeta_X", "flux_UV", "flux_Lya",
+                  "flux_Vis", "flux_NIR", "flux_MIR", "flux_FIR",
+                  "phflux_Lya", "vol"]
+# SED bands (Angstrom): UV, optical, near-IR, far-IR
+SED_BANDS = {"UV": (1e3, 3e3), "optical": (4e3, 7e3), "near-IR": (1e4, 5e4),
+             "far-IR": (5e5, 5e6)}
+
+
+def synced(fn):
+    """(fn(), its wall seconds, the card synchronized after it)."""
+    t0 = time.time()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def peak_gib(fn):
+    """(fn()'s result, its wall seconds, the card memory it held at its
+    peak above what was allocated before it, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, wall = synced(fn)
+    return out, wall, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def pop_diff(f, g, err_f, err_g, tol=1e-10):
+    """Populations [cells, levels] of two NLTE solves: (cells converged in
+    both, the same set?, max relative difference over levels above tol,
+    max absolute difference below)."""
+    cf, cg = err_f <= tol, err_g <= tol
+    both = cf & cg
+    a, b = f[both], g[both]
+    big = b > tol
+    rel = np.abs(a - b)[big] / b[big]
+    return (int(both.sum()), bool((cf == cg).all()),
+            float(rel.max()) if rel.size else 0.0,
+            float(np.abs(a - b)[~big].max()) if (~big).any() else 0.0)
+
+
+def cube_subset_cpu(model, theta, xs, ys, freqs, is_line, I, tau, Nu, Nl):
+    """SUB x SUB of a cube's rays traced again on the CPU: the largest
+    difference of I, tau, N_up and N_low from the card's cube, each over
+    its array's largest value."""
+    from rac2d_torch.ops import geometry, raytrace
+
+    def cpu(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+    cpu_model = model._replace(
+        gi=geometry.GridIndex(*(cpu(t) for t in model.gi)),
+        cells=raytrace.RtCells(*(cpu(t) for t in model.cells)),
+        kext_dust=cpu(model.kext_dust))
+    (px, py, pz), v = raytrace.cube_rays(model, theta, xs, ys)
+    pick = np.linspace(0, len(xs) - 1, SUB).astype(int)
+    ray = (pick[:, None] * len(ys) + pick[None, :]).ravel()
+    fr = torch.as_tensor(np.asarray(freqs, dtype=np.float64))
+    out = raytrace.integrate_rays(cpu_model, px[ray], py[ray], pz[ray], *v,
+                                  fr, raytrace.cmb(fr), is_line=is_line)
+    card = (I.reshape(-1, I.shape[-1]), tau.ravel(), Nu.ravel(), Nl.ravel())
+    errs = {}
+    for name, a, full in zip(("I", "tau", "N_up", "N_low"), out, card):
+        scale = float(np.abs(full).max()) or 1.0
+        errs[name] = float(np.abs(a.numpy() - full[ray]).max()) / scale
+    return errs
+
+
+def check_imaging(m, dev):
+    """Phases 12a-b on phase 11's model: checkpoint and iteration-table
+    round trips, the SED, a continuum cube, CO NLTE excitation over every
+    active cell and a CO J=2-1 line cube, then parts of them again on the
+    CPU."""
+    import tempfile
+    from rac2d_torch import checkpoint, defaults
+    from rac2d_torch.models import imaging, output
+    from rac2d_torch.ops import stateq
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        checkpoint.save_state(f"{tmp}/ck.npz", m, 1)
+        m2 = type(m)(m.cfg, dev)
+        m2.prepare()
+        it = checkpoint.load_state(f"{tmp}/ck.npz", m2)
+        bad = [k for k in ("X", "Tgas", "Tdust", "Tdusts", "quality")
+               if not np.array_equal(getattr(m2, k), getattr(m, k))
+               or getattr(m2, k).dtype != getattr(m, k).dtype]
+        times["checkpoint"] = time.time() - t0
+        say(f"phase 12a checkpoint: save, prepare a new model, load: "
+            f"iiter {it}, arrays not bit-equal: {bad or 'none'}; "
+            f"{times['checkpoint']:.2f} s")
+        if bad or it != 1:
+            raise Fail("phase 12a: the checkpoint does not round-trip")
+        del m2
+        t0 = time.time()
+        output.save_iter_npz(f"{tmp}/iter.npz", m, 1)
+        d = output.load_iter_npz(f"{tmp}/iter.npz")
+        missing = [k for k in ITER_PHYS_KEYS if k not in d]
+        differ = [k for k in ("Tgas", "Tdust", "abundances", "quality")
+                  if not np.array_equal(d[k], output.iter_table(m)[k])]
+        times["iter_npz"] = time.time() - t0
+        say(f"phase 12a iteration table: {len(d)} keys, PHYS_COLUMNS keys "
+            f"missing {missing or 'none'}, state arrays differing "
+            f"{differ or 'none'}; {times['iter_npz']:.2f} s")
+        if missing or differ:
+            raise Fail("phase 12a: the iteration table does not round-trip")
+    lam, F = m.sed()
+    band = {k: float(F[:, (lam >= lo) & (lam <= hi)].sum())
+            for k, (lo, hi) in SED_BANDS.items()}
+    say("phase 12a SED (erg/s/cm2/A summed over the band's bins and the mu "
+        "bins): " + ", ".join(f"{k} {v:.4g}" for k, v in band.items())
+        + f"; finite {bool(np.isfinite(F).all())}")
+    if not np.isfinite(F).all() or min(band.values()) <= 0:
+        raise Fail("phase 12a: the SED is not finite and > 0 in every band")
+
+    # the continuum cube
+    (I, tau, spec), times["continuum"], mem = peak_gib(
+        lambda: imaging.make_continuum_cube(m, CONT_LAM_A, IMG_THETA,
+                                            nx=IMG_NX, ny=IMG_NX))
+    pk = np.unravel_index(np.argmax(I[:, :, 0]), I.shape[:2])
+    off = float(np.hypot(pk[0] - IMG_NX // 2, pk[1] - IMG_NX // 2))
+    say(f"phase 12a continuum cube {IMG_NX}x{IMG_NX} at {CONT_LAM_A:g} A, "
+        f"{IMG_THETA:g} deg: {times['continuum']:.2f} s, peak card memory "
+        f"{mem:.3f} GiB above the model's; finite "
+        f"{bool(np.isfinite(I).all())}, peak {I.max():.4g} at {pk}, "
+        f"{off:.1f} px from the centre (tol 3), flux {spec[0]:.4g} Jy")
+    if not np.isfinite(I).all() or off > 3.0:
+        raise Fail("phase 12a: the continuum cube")
+    from rac2d_torch import constants as c
+    half = m.grid.rmax.max() * 1.05             # as make_continuum_cube
+    xs = np.linspace(-half, half, IMG_NX)
+    cont = (imaging.continuum_model(m, CONT_LAM_A), IMG_THETA, xs, xs,
+            np.atleast_1d(c.SpeedOfLight_CGS / (CONT_LAM_A * c.Angstrom2cm)),
+            False, I, tau, np.zeros_like(tau), np.zeros_like(tau))
+
+    # CO NLTE excitation over every active cell, then the J=2-1 cube
+    li = imaging.LineImaging(m, imaging.LineConfig(
+        mol_file=defaults.CO_LAMDA, mole_name="CO", useLTE=False,
+        nx=IMG_NX, ny=IMG_NX, nf=IMG_NF, view_thetas=(IMG_THETA,)))
+    st = {}
+    # twice: the first call also loads the card's linear-algebra library
+    _, times["nlte_first"] = synced(lambda: li.excitation(stats=st))
+    fpop, times["nlte"] = synced(lambda: li.excitation(stats=st))
+    act = np.nonzero(m.grid.using)[0]
+    f = fpop[:, act]
+    conv = st["err"] <= 1e-10
+    say(f"phase 12a CO NLTE excitation: {st['cells']} active cells, "
+        f"{li.mol.n_level} levels, {int(conv.sum())} converged "
+        f"({conv.mean():.1%}), {st['steps']} batched Newton steps, steps "
+        f"per cell {np.bincount(st['iters']).tolist()}; min population "
+        f"{f.min():.3g}, max |sum - 1| {np.abs(f.sum(0) - 1).max():.2e} "
+        f"(tol 1e-12); {times['nlte']:.2f} s (the first call "
+        f"{times['nlte_first']:.2f} s)")
+    if f.min() < 0 or np.abs(f.sum(0) - 1).max() > 1e-12 \
+            or conv.mean() < 0.95:
+        raise Fail("phase 12a: the NLTE populations")
+    itr = int(np.argmin(np.abs(li.mol.freq - 230.538e9)))
+    (I, tau, Nu, Nl, spec), times["line"], mem = peak_gib(
+        lambda: li.make_cube(itr, IMG_THETA))
+    from rac2d_torch.ops import raytrace
+    chunk = raytrace.CHUNK_ELEMS // ((raytrace.NSUB + 1) * IMG_NF)
+    c0 = IMG_NF // 2          # the channel at the rest frequency
+    kl = int(np.argmax(spec[:c0]))
+    kr = c0 + 1 + int(np.argmax(spec[c0 + 1:]))
+    hl, hr = float(spec[kl]), float(spec[kr])
+    say(f"phase 12a CO J=2-1 cube {IMG_NX}x{IMG_NX}x{IMG_NF} at "
+        f"{IMG_THETA:g} deg: {times['line']:.2f} s in "
+        f"{-(-IMG_NX * IMG_NX // chunk)} chunks of {chunk} rays, peak card "
+        f"memory {mem:.3f} GiB above the model's; finite "
+        f"{bool(np.isfinite(I).all())}; spectrum peaks at channels {kl} "
+        f"and {kr} (mirror of {kl}: {2 * c0 - kl}, tol 1), {hl:.4g} and "
+        f"{hr:.4g} Jy (tol 10%), {float(spec[c0]):.4g} Jy at the centre; "
+        f"max tau {tau.max():.3g}")
+    if not np.isfinite(I).all() or abs(kl + kr - 2 * c0) > 1 \
+            or abs(hl - hr) > 0.1 * max(hl, hr) \
+            or not spec[c0] < min(hl, hr):
+        raise Fail("phase 12a: the line spectrum is not double-peaked and "
+                   "symmetric")
+
+    # 12b: parts of the same work on the CPU
+    t0 = time.time()
+    act_e, envs = li.exc_envs()
+    sel = np.linspace(0, len(act_e) - 1, SUB_CELLS).astype(int)
+    sub = stateq.CellExcEnv(*(a[sel].cpu() for a in envs))
+    fc, ec = stateq.solve_stateq_batch(
+        stateq.build_mol_tables(li.mol, "cpu"), sub)
+    n_both, same, rel, ab = pop_diff(fc.numpy(), fpop[:, act_e[sel]].T,
+                                     ec.numpy(), st["err"][sel])
+    say(f"phase 12b NLTE on {SUB_CELLS} cells on the CPU vs the card: "
+        f"{n_both} converged in both, same set {same}, max rel diff "
+        f"{rel:.2e} on levels above 1e-10 (tol 1e-6), max abs diff "
+        f"{ab:.2e} below (tol 1e-12); {time.time() - t0:.2f} s")
+    if not same or rel > 1e-6 or ab > 1e-12:
+        raise Fail("phase 12b: NLTE populations on the CPU and the card "
+                   "differ")
+    freqs, _, xs, ys = li.cube_axes(itr)
+    for name, args in (("line", (li.rt_model(itr, freqs), IMG_THETA, xs,
+                                 ys, freqs, True, I, tau, Nu, Nl)),
+                       ("continuum", cont)):
+        t0 = time.time()
+        errs = cube_subset_cpu(*args)
+        say(f"phase 12b {name} cube, {SUB}x{SUB} rays on the CPU vs the "
+            "card (max diff / the array's max): " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol 1e-9); {time.time() - t0:.2f} s")
+        if max(errs.values()) > 1e-9:
+            raise Fail(f"phase 12b: the {name} cube on the CPU and the "
+                       "card differ")
+    return times
+
+
+# phase 12c's changes to examples/verify_model.toml: (text, replacement),
+# each found once, and the tables added at its end
+CLI_EDITS = [("t_max = 1.0", "t_max = 1e-4"),
+             ("chem_chunk = 32", "chem_chunk = 256"),
+             ("useLTE = true", "useLTE = false")]
+CLI_TABLES = """
+[output]
+per_iteration = true
+
+[analysis]
+points = [[10.0, 1.0]]
+"""
+
+
+def cli_toml(path):
+    """examples/verify_model.toml with phase 12c's changes, written to
+    path: t_max 1e-4 yr in one window, NLTE lines, per-iteration tables
+    and one analysis point."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    text = (root / "examples" / "verify_model.toml").read_text()
+    for old, new in CLI_EDITS:
+        if text.count(old) != 1:
+            raise Fail(f"phase 12c: '{old}' is not in the verify model once")
+        text = text.replace(old, new)
+    path.write_text(text + CLI_TABLES)
+
+
+def run_cli(outdir, toml, *extra):
+    """python -m rac2d_torch toml --out outdir extra..., with no --device
+    (the card); (wall seconds, its log)."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "rac2d_torch", str(toml), "--out",
+           str(outdir), *extra]
+    t0 = time.time()
+    try:
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise Fail(f"phase 12c: {' '.join(cmd[1:])} ran past "
+                   f"{CLI_TIMEOUT_S} s")
+    wall = time.time() - t0
+    if r.returncode != 0:
+        say(r.stdout[-4000:] + r.stderr[-4000:])
+        raise Fail(f"phase 12c: {' '.join(cmd[1:])} exited {r.returncode}")
+    log = (pathlib.Path(outdir) / "log.txt").read_text()
+    for ln in log.splitlines():
+        if any(k in ln for k in ("prepare done", "MC pass", "pool sweep",
+                                 "stage timing", "finished in", " in ")):
+            say(f"  log: {ln.strip()}")
+    return wall, log
+
+
+def log_launches(log):
+    """The kernel launch counts of a command-line log, {"K1": n, ...}."""
+    counts = {}
+    for ln in log.splitlines():
+        if ln.startswith("kernel launches:"):
+            for part in ln.split(":", 1)[1].split(","):
+                k, v = part.split()
+                counts[k] = int(v)
+    return counts
+
+
+def check_cli_outputs(outdir, log, per_iteration, lines_want=None):
+    """Every output file there, and the line cubes its log says it wrote
+    (at least one; with lines_want, those names); each FITS cube parses
+    with the port's reader and holds finite values.  (ok, what, the line
+    cubes' names)."""
+    import pathlib
+    from rac2d_torch.io import fits
+    out = pathlib.Path(outdir)
+    missing = [f for f in CLI_FILES if not (out / f).exists()]
+    if per_iteration and not (out / "iter_0001.npz").exists():
+        missing.append("iter_0001.npz")
+    cubes = sorted(out.glob("*.fits"))
+    lines = [c.name for c in cubes if c.name.startswith("line_")]
+    conts = [c for c in cubes if c.name.startswith("cont_")]
+    logged = sorted(pathlib.Path(ln.split()[1]).name
+                    for ln in log.splitlines()
+                    if ln.startswith("wrote ") and "/line_" in ln)
+    bad = []
+    for c in cubes:
+        data, _ = fits.read_fits_image(str(c))
+        if not np.isfinite(data).all():
+            bad.append(c.name)
+    ok = (not missing and not bad and conts and lines and lines == logged
+          and (lines_want is None or lines == lines_want))
+    return ok, (f"missing {missing or 'none'}, {len(lines)} line cubes "
+                f"({len(logged)} in the log"
+                + ("" if lines_want is None else
+                   f", {len(lines_want)} in the first run")
+                + f"), {len(conts)} continuum cubes, non-finite "
+                f"{bad or 'none'}"), lines
+
+
+def check_cli(dev):
+    """Phases 12c-d: python -m rac2d_torch on the verify model (its tables,
+    with t_max 1e-4 yr in one window, per-iteration tables, one analysis
+    point and NLTE lines), --iters 1, then resumed from its checkpoint
+    with --iters 0; then the kernels at the shapes the first run gave
+    them."""
+    import pathlib
+    import re
+    import tempfile
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        toml = pathlib.Path(tmp) / "model.toml"
+        cli_toml(toml)
+        out1, out2 = pathlib.Path(tmp) / "run", pathlib.Path(tmp) / "resume"
+        walls["run"], log = run_cli(out1, toml, "--iters", "1")
+        counts = log_launches(log)
+        ok, what, lines = check_cli_outputs(out1, log, True)
+        say(f"phase 12c python -m rac2d_torch --iters 1: {walls['run']:.1f} "
+            f"s, exit 0; {what}; kernel launches in its log: {counts}")
+        if not ok or len(counts) != 4 or min(counts.values()) <= 0:
+            raise Fail("phase 12c: the command line's outputs or launches")
+        walls["resume"], log2 = run_cli(
+            out2, toml, "--resume", str(out1 / "checkpoint.npz"),
+            "--iters", "0")
+        ok, what, _ = check_cli_outputs(out2, log2, False, lines)
+        resumed = "resumed from" in log2
+        say(f"phase 12c resumed, --iters 0: {walls['resume']:.1f} s, exit "
+            f"0; {what}; resumed {resumed}; launches {log_launches(log2)}")
+        if not ok or not resumed:
+            raise Fail("phase 12c: the resumed run's outputs")
+        width = [int(w) for w in re.findall(r"pool sweep: \d+ cells, "
+                                            r"width (\d+)", log)]
+        if len(set(width)) != 1:
+            raise Fail("phase 12c: no single pool width in the log")
+        kern = check_cli_kernels(dev, toml, out1 / "checkpoint.npz",
+                                 width[0])
+    return walls, counts, kern
+
+
+def check_cli_kernels(dev, toml, ckpt, width):
+    """Phase 12d: K1-K4 against their plain versions at the shapes the
+    command line's --iters 1 run gave them: K1/K2 at its pool window of
+    `width` lanes, K3/K4 at its pass width on its own model and state
+    (from its checkpoint).  Then one pass on that state, and again with
+    the initial Tdust and with the initial atomic hydrogen, to show why
+    the resumed run's passes walk longer than the first run's.  {kernel:
+    its row's "cli" entry}."""
+    from rac2d_torch import checkpoint, config
+    from rac2d_torch.models import driver
+    t0 = time.time()
+    m = driver.DiskModel(config.load_config(str(toml)), dev)
+    m.prepare()
+    X0, Td0 = m.X.copy(), m.Tdusts.copy()
+    checkpoint.load_state(str(ckpt), m)
+    n = m.net.n_species + 1
+    chk = check_shape(dev, width, n)
+    tm = time_kernels(**chk)
+    out = {key: {"B": width, "n": n, "max_abs_err": chk[err], **tm[key]}
+           for key, err in (("K1", "err_fac"), ("K2", "err_x"))}
+    del chk
+    lam, _, _ = m.packet_pool()
+    lanes = min(m.mc_cfg.max_batch, len(lam))
+    k3 = check_walk(m, dev, tag="phase 12d", nph=None, batch=lanes,
+                    warm=False, edges=False)
+    k4 = check_fold(**k3, tag="phase 12d")
+    for key, r in (("K3", k3), ("K4", k4)):
+        out[key] = {"B": lanes, "max_abs_err": r["err"], **{k: r[k] for k in (
+            "ms", "device_ms", "host_ms", "plain_ms", "bound_ms")}}
+    # the first run's passes started from the initial Tdust and
+    # abundances, the resumed run's from the checkpoint's: one pass on
+    # the checkpoint's state, and again with each of the two put back
+    cells = m.mc_cells()
+    n_HI0 = m._t(m.grid.n0 * X0[m.net.idx["H"]])
+    walks = {}
+    for name, cl in (("checkpoint", cells),
+                     ("initial Tdust", cells._replace(Tdust=m._t(Td0))),
+                     ("initial n_HI", cells._replace(n_HI=n_HI0))):
+        _, fates, st = m.mc_pass(0, cells=cl)
+        walks[name] = (st["chunks"], st["tail_chunks"], fates["escaped"])
+    say(f"phase 12d one pass of {len(lam)} packets: " + "; ".join(
+        f"{k}: {c} walk chunks ({t} with at most 64 live lanes), {e} "
+        f"escaped" for k, (c, t, e) in walks.items()))
+    say(f"phase 12d done: {time.time() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -1316,23 +1773,44 @@ def main():
         del m
         torch.cuda.empty_cache()
         # ---- 11. the main path: DiskModel.run ----
-        run_launches = run_model(dev)
+        run_launches, m = run_model(dev)
+        # ---- 12. the command line and imaging ----
+        t12 = time.time()
+        kernels.reset_launches()
+        times = check_imaging(m, dev)
+        img_launches = kernels.launch_counts()
+        del m
+        torch.cuda.empty_cache()
+        walls, cli_launches, cli_kern = check_cli(dev)
+        t12 = time.time() - t12
+        img = ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+        cli = ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        say(f"phase 12 done: {t12:.1f} s (aim <= {PHASE12_AIM_S:g} s); "
+            f"imaging {img}; command line {cli}; kernel launches in phases "
+            f"12a-b {img_launches}, in the command line's run "
+            f"{cli_launches}")
         for row, key in zip(rows, ("K1", "K2")):
             row["launches"] = run_launches[key]
-        res = {"mc_walk": (k3, mc_launches[0], run_launches["K3"]),
-               "fold_terminal": (k4, mc_launches[1], run_launches["K4"])}
+            row["launches_cli"] = cli_launches[key]
+            row["cli"] = cli_kern[key]
+        res = {"mc_walk": (k3, mc_launches[0], run_launches["K3"],
+                           cli_launches["K3"], cli_kern["K3"]),
+               "fold_terminal": (k4, mc_launches[1], run_launches["K4"],
+                                 cli_launches["K4"], cli_kern["K4"])}
         for row, replaces, name in PROBES:
-            r, n, n_run = res[name]
+            r, n, n_run, n_cli, cli = res[name]
             rows.append({"name": f"{name} ({row})", "route": "cuda",
                          "source": MC_SOURCE, "replaces": replaces,
                          "launches": n_run, "launches_slice": n,
+                         "launches_cli": n_cli,
                          "max_abs_err": r["err"],
                          "ms": r["ms"], "device_ms": r["device_ms"],
                          "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": "bytes",
                          "library_ms": None,
                          **({"bound_all_fields_ms": r["bound_all_fields_ms"]}
-                            if "bound_all_fields_ms" in r else {})})
+                            if "bound_all_fields_ms" in r else {}),
+                         "cli": cli})
     except Fail as e:
         say(f"FAIL {e}")
         return 1

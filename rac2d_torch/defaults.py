@@ -14,3 +14,6 @@ ENTHALPIES = str(DATA / "chem" / "Species_enthalpy.dat")
 SILICATE_OPTI = str(DATA / "dust" / "silicate_draine.opti")
 H2O_PHOTOXS = str(DATA / "star" / "H2O.photoxs")
 TWHYA_SPECTRUM = str(DATA / "star" / "tw_hya_spec_combined.dat")
+GRAPHITE_OPTI = str(DATA / "dust" / "graphite_draine_pa_0.01.opti")
+CO_LAMDA = str(DATA / "co_lamda.dat")
+H2O_LAMDA = str(DATA / "h2o_lamda.dat")

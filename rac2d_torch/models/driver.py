@@ -14,16 +14,18 @@ device), ``prepare_sweep_fields`` and ``assemble_envs`` (columns,
 self-shielding and the per-cell environments, float64 on the model's
 device), the pool chemistry sweep on its ``evolT=True`` branch (whose
 Newton factor and solve are kernels K1 and K2), ``chemistry_step`` with its
-convergence bookkeeping, and ``run``.  Not ported yet, each raising
+convergence bookkeeping, ``run`` with its per-iteration outputs
+(``save_dir``), and ``sed``.  Not ported yet, each raising
 ``NotImplementedError`` when asked for: ``evolT=False`` (the
 equilibrium-temperature update), ``chem_stream=False`` (the chunked
-sweep), the vertical structure, AMR refine/merge, and the per-iteration
-outputs (``run(save_dir=...)``); the sharded multi-device pass.
+sweep), the vertical structure, AMR refine/merge; the sharded
+multi-device pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import time
 
 import numpy as np
@@ -117,11 +119,18 @@ class DiskConfig:
     dust_depletion: float = 1.0
     hc: thermal.HcConfig = dataclasses.field(default_factory=thermal.HcConfig)
     # hydrostatic vertical structure and AMR refine/merge (reference
-    # disk.f90:984-1093, 3646-4033): not ported, off
+    # disk.f90:984-1093, 3646-4033): not ported; run refuses them when on
     do_vertical_with_Tdust: bool = False
+    n_vert_iter_tdust: int = 4
     do_vertical_every: int = 0        # 0 = off
+    vertical_moving: bool = False
+    disk_gas_mass_preset: float | None = None
     do_refine: bool = False
     do_merge: bool = False
+    refine_watch_species: tuple = ("H2", "H2O", "CO", "E-")
+    refine_watch_file: str | None = None
+    refine_threshold: float = 10.0
+    merge_tol: float = 1.5
     # ad-hoc O/C(/N) depletion of the initial abundances
     # (models.depletion.DepletionConfig); None = off
     depletion: object = None
@@ -132,6 +141,9 @@ class DiskConfig:
     # dust albedo entering the CR-induced-photon rate correction
     # (reference template_configure.dat:233)
     cell_omega_albedo: float = 0.5
+    # the JAX package shards its chemistry over several devices with it;
+    # on one device, as here, it has no effect there either
+    shard_chemistry: bool = True
 
 
 class DiskModel:
@@ -152,6 +164,9 @@ class DiskModel:
         # machine without one) fails here, with torch's own error
         torch.empty(0, device=self.device)
         self.log = []
+        # when set, say() also appends each line to this file as it runs
+        # (the reference tees to logs/log.dat, sub_trivials.f90:1088)
+        self.log_path = None
         # one record per MC pass: wall time, packets, walk chunks,
         # refills, kernel launches, fates and the cells it read
         self.mc_stats = []
@@ -159,6 +174,9 @@ class DiskModel:
     def say(self, msg):
         self.log.append(msg)
         print(msg, flush=True)
+        if self.log_path is not None:
+            with open(self.log_path, "a") as f:
+                f.write(msg + "\n")
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -387,12 +405,39 @@ class DiskModel:
                                      float(self.Tdust[use].max()))
             self.mc_stats.append(stats)
             self.say(f"  MC pass {ip + 1}/{n_passes}: "
-                     f"{stats['packets']} packets in {stats['wall_s']:.1f}s; "
+                     f"{stats['packets']} packets in {stats['wall_s']:.1f}s, "
+                     f"{stats['chunks']} walk chunks ("
+                     f"{stats['tail_chunks']} with at most "
+                     f"{mcrt.TAIL_LANES} live lanes); "
                      f"Tdust {self.Tdust[use].min():.1f}.."
                      f"{self.Tdust[use].max():.1f} K; "
                      f"esc {fates['escaped']} "
                      f"destr {fates['destructed']} "
                      f"prem {fates['premature']}")
+
+    # ------------------------------------------------------------------
+    def sed(self, dist_pc=100.0):
+        """Observed SED per viewing-angle bin from the escape collector,
+        in float64 on the host, as the JAX package computes it.
+
+        Role of the reference photon collector output
+        (save_collected_photons_iter, montecarlo.f90:1869-2097): the
+        escaped-packet energy tally [erg/s] per (mu, lambda) bin becomes
+        F_lambda [erg s^-1 cm^-2 A^-1] at the given distance, assuming
+        each mu bin's energy spreads over its solid-angle annulus (x2 for
+        the mirrored lower hemisphere).  Returns (bin centres [A],
+        F [n_mu, nlam - 1]).
+        """
+        coll = self.tallies.collector.cpu().numpy()     # [n_mu, nlam]
+        lam = np.asarray(self.tab.lam, dtype=np.float64)
+        dlam = np.diff(lam)
+        n_mu = coll.shape[0]
+        dmu = 1.0 / n_mu
+        d2 = (dist_pc * c.pc2cm) ** 2
+        # solid angle of one |mu| bin, both hemispheres: 2 x 2 pi dmu
+        omega_bin = 4.0 * np.pi * dmu
+        F = coll[:, :-1] / dlam[None, :] / (omega_bin * d2)
+        return 0.5 * (lam[1:] + lam[:-1]), F
 
     # ------------------------------------------------------------------
     def prepare_sweep_fields(self):
@@ -526,7 +571,7 @@ class DiskModel:
         return self._visser
 
     # ------------------------------------------------------------------
-    def _refuse_unported(self, loop=True, save_dir=None):
+    def _refuse_unported(self, loop=True):
         """Raise NotImplementedError for an option whose code path is not
         ported yet: the chemistry sweep's, and with loop those of run."""
         cfg = self.cfg
@@ -540,9 +585,7 @@ class DiskModel:
                      ("do_vertical_every", cfg.do_vertical_every > 0,
                       "the vertical structure"),
                      ("do_refine", cfg.do_refine, "AMR"),
-                     ("do_merge", cfg.do_merge, "AMR"),
-                     ("run(save_dir=...)", save_dir is not None,
-                      "the per-iteration outputs")]
+                     ("do_merge", cfg.do_merge, "AMR")]
         for name, asked, item in asks:
             if asked:
                 raise NotImplementedError(
@@ -644,9 +687,12 @@ class DiskModel:
         check.  Each iteration's stage times (s) go to self.stage_times
         and a "stage timing" line, printed before the convergence check
         (the JAX package prints it after, so not on the last iteration
-        of a converged run)."""
+        of a converged run).  save_dir: if given, the per-cell table of
+        every iteration goes to save_dir/iter_NNNN.npz after its
+        chemistry step, before the convergence check (reference
+        iter_NNNN.dat, disk.f90:2745-3074)."""
         n_iter = self.cfg.n_iter if n_iter is None else n_iter
-        self._refuse_unported(save_dir=save_dir)
+        self._refuse_unported()
         self.say("initial Monte Carlo (Tdust bootstrap)...")
         t_st = time.time()
         self.run_mc()
@@ -668,6 +714,11 @@ class DiskModel:
             self.stage_times.append(stage_t)
             self.say("  stage timing: " + "  ".join(
                 f"{k} {v:.1f}s" for k, v in stage_t.items()))
+            if save_dir is not None:
+                from . import output as outmod
+                p = pathlib.Path(save_dir) / f"iter_{it:04d}.npz"
+                outmod.save_iter_npz(p, self, it)
+                self.say(f"  saved {p}")
             if frac >= self.cfg.converged_fraction:
                 self.say("converged.")
                 break

@@ -632,3 +632,9 @@ def reset_launches():
     block_lu_solve.launches = 0
     mc_walk.launches = 0
     fold_terminal.launches = 0
+
+
+def launch_counts():
+    """Every kernel's launch count since the last reset_launches."""
+    return {"K1": block_lu_factor.launches, "K2": block_lu_solve.launches,
+            "K3": mc_walk.launches, "K4": fold_terminal.launches}

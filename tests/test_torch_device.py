@@ -129,7 +129,11 @@ def test_port_imports_no_jax():
             "import rac2d_torch.models.driver, rac2d_torch.ops.odesys, "
             "rac2d_torch.ops.mcrt, rac2d_torch.ops.columns, "
             "rac2d_torch.io.native, rac2d_torch.models.depletion, "
-            "rac2d_torch.convert\n"
+            "rac2d_torch.convert, rac2d_torch.__main__, rac2d_torch.config, "
+            "rac2d_torch.checkpoint, rac2d_torch.models.output, "
+            "rac2d_torch.models.imaging, rac2d_torch.ops.raytrace, "
+            "rac2d_torch.ops.stateq, rac2d_torch.ops.linalg, "
+            "rac2d_torch.ops.analysis\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rac2d_tpu'))\n"
@@ -138,3 +142,52 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_cli_device_defaults_to_the_card(tmp_path):
+    """python -m rac2d_torch runs on the card unless --device says
+    otherwise; without CUDA the default fails with torch's own error."""
+    from rac2d_torch import __main__ as cli
+    assert cli.parser().parse_args(["model.toml"]).device == "cuda"
+    assert cli.parser().parse_args(
+        ["model.toml", "--device", "cpu"]).device == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        cli.main([str(ROOT / "examples" / "verify_model.toml"),
+                  "--save-only-structure", "--out", str(tmp_path)])
+
+
+# the imaging and analysis entry points: the device is the model's
+FOLLOW_THE_MODEL = [
+    ("rac2d_torch.models.imaging", "LineImaging"),
+    ("rac2d_torch.models.imaging", "make_continuum_cube"),
+    ("rac2d_torch.models.imaging", "continuum_model"),
+    ("rac2d_torch.ops.analysis", "analyse_model_points"),
+    ("rac2d_torch.checkpoint", "save_state"),
+    ("rac2d_torch.checkpoint", "load_state"),
+    ("rac2d_torch.models.output", "save_iter_npz"),
+]
+
+
+@pytest.mark.parametrize("module,name", FOLLOW_THE_MODEL)
+def test_imaging_follows_the_model_device(module, name):
+    assert _device_param(getattr(importlib.import_module(module),
+                                 name)) is None, f"{module}.{name}"
+
+
+def test_mol_tables_take_the_callers_device():
+    """build_mol_tables has no device default, and puts every table on
+    the device it is given."""
+    from rac2d_torch import defaults
+    from rac2d_torch.io import lamda
+    from rac2d_torch.ops import stateq
+    p = inspect.signature(stateq.build_mol_tables).parameters["device"]
+    assert p.default is inspect.Parameter.empty
+    tab = stateq.build_mol_tables(lamda.load_lamda(defaults.CO_LAMDA),
+                                  "meta")
+    tensors = [t for t in tab if isinstance(t, torch.Tensor)]
+    tensors += [t for f in ("p_iup", "p_ilow", "p_T", "p_Cul")
+                for t in getattr(tab, f)]
+    assert len(tensors) > 10
+    assert all(t.device.type == "meta" for t in tensors)

@@ -108,16 +108,15 @@ def test_chemistry_hand_off_matches_jax(grid, chem_chunk, t_max):
 
 @pytest.mark.parametrize("option", [
     "evolT", "chem_stream", "do_vertical_with_Tdust", "do_vertical_every",
-    "do_refine", "do_merge", "save_dir"])
-def test_unported_options_raise(option, tmp_path):
+    "do_refine", "do_merge"])
+def test_unported_options_raise(option):
     driver, cfg = tiny_cfg("torch", 1e-4)
     value = {"evolT": False, "chem_stream": False,
              "do_vertical_every": 1}.get(option, True)
-    if option != "save_dir":
-        setattr(cfg, option, value)
+    setattr(cfg, option, value)
     m = driver.DiskModel(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=option.split("_")[0]):
-        m.run(save_dir=tmp_path if option == "save_dir" else None)
+        m.run()
     assert not m.mc_stats          # refused before any work
     if option in ("evolT", "chem_stream"):
         with pytest.raises(NotImplementedError):
