@@ -136,7 +136,39 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      cubes print their peak card memory.  Phase 12 aims at <= 180 s.
      The JAX reader's DiskConfig on the same TOML is compared in the CPU
      tests only (tests/test_torch_cli.py): this machine need not have
-     JAX.
+     JAX;
+ 13. the JAX package's end-to-end configuration (the switches of
+     tests/test_e2e_driver.py's fixture, with merging):
+     DiskModel(cfg, "cuda").prepare() then run(n_iter=2) on the bench disk
+     with phase 11's shapes (RUN_CHUNK window, RUN_T_MAX, 2 MC passes of
+     1e6 packets) and evolT=False, do_vertical_with_Tdust with
+     n_vert_iter_tdust=2, do_vertical_every=1, do_refine and do_merge: the
+     hydrostatic bootstrap (MC and balance, twice), the initial MC,
+     fixed-T chemistry (K1/K2) then the equilibrium T by bisection in each
+     iteration, the re-balance and AMR after the first, the second's MC
+     (K3/K4) on the refined grid.  It prints each vertical pass's gas mass,
+     rescale range and time, the stage timing lines, the cells and active
+     cells before and after AMR with the refined cells and merged pairs,
+     the cells bracketed and not by the equilibrium T, K1-K4 launches over
+     the run (each must be > 0), each MC pass's walk chunks and fates and
+     the cells at quality 512.  It fails on any of phase 11's checks on
+     the final grid; on a pass on the refined grid that does not count
+     every packet or leaves more than 1e-3 of them premature or walking
+     at the step cap, or whose lanes at the cap (diffusing through the
+     dense midplane cells the bootstrap makes) do not end when walked on
+     through K3 for nmax_encounter more steps; on no refined cell; on the
+     equilibrium T of 64 cells solved again on the CPU from the same
+     environments differing in a bracket flag or by more than 1e-5 T +
+     0.1 K; on K3/K4 disagreeing with their plain versions on the refined
+     grid's cells and state (as in phase 12d); unless save_state of the
+     refined model, load_state into a newly prepared model, gives back the
+     grid hash, every grid array and X, Tgas, Tdust, Tdusts, quality and
+     rho_dust bit-equal, and a run_mc there counts every packet; and,
+     last, on a column surface density (over the cells active before the
+     call) that a fixed-grid re-balance of the refined model changes by
+     more than 1e-12 relative.  Each sweep's wall budget is RUN_BUDGET_S
+     a window of RUN_CHUNK cells; the pool sweep's log line gives it.
+     Phase 13 aims at <= 360 s.
 Phases 7 and 8 also print the bounds of K3 and K4 (bytes: for K3 the
 packet state read and written once, the tables read once, the tally bins
 the run touched read and written once; for K4 the two bases above); no
@@ -149,11 +181,14 @@ for each TPU probe kernel that K3 or K4 replaces, each with its time,
 bound, plain and library times and launches: `launches` over phase 11's
 run, `launches_slice` over phase 5 (K1/K2) or phase 9 (K3/K4),
 `launches_cli` over phase 12c's command-line run (read from its log; the
-imaging of phases 12a-b launches none); the K1/K2
+imaging of phases 12a-b launches none), `launches_e2e` over phase 13's
+run; the K1/K2
 rows hold their check and times at phase 11's window B=RUN_CHUNK and,
 under "slice", at phase 5's B=W; K3/K4
 rows add device_ms, the queued device time; every row holds, under
-"cli", its check and times at phase 12c's shape) and the card's nvidia-smi
+"cli", its check and times at phase 12c's shape, and K3/K4 rows under
+"e2e" their check and times on phase 13's refined grid) and the card's
+nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.  Where a pass's
 host time goes: mc_pass_profile.py (run by hand).
 """
@@ -1210,6 +1245,56 @@ def shielding_card_vs_cpu(m):
     return {k: rel_diff(a, b) for k, (a, b) in pairs.items()}
 
 
+def check_sane(m, tag):
+    """The run's state on its final grid: at most 5% of the active cells
+    at quality 512; finite X and Tgas, abundances < 1.5 and Tgas in
+    (2, 3e4) K in clean cells, their elements within 1% of the initial
+    ones; max H2 over active cells > 0.1; Tdust in [TdustMin, TdustMax];
+    every column, shielding factor and Av_toISM on the card within 1e-12
+    of the CPU's."""
+    use = m.grid.using
+    n_act = int(use.sum())
+    q512 = int(((m.quality & 512) > 0)[use].sum())
+    say(f"{tag} chemistry: converged {int(m.converged_cells.sum())}/"
+        f"{len(m.converged_cells)} ({m.converged_cells.mean():.1%}); cells "
+        f"at quality 512: {q512} of {n_act} active (tol "
+        f"{0.05 * n_act:.0f}, 5%)")
+    if q512 > 0.05 * n_act:
+        raise Fail(f"{tag}: more than 5% of active cells at quality 512")
+    X, Tg = m.X, m.Tgas
+    if not (np.isfinite(X).all() and np.isfinite(Tg).all()):
+        raise Fail(f"{tag}: non-finite X or Tgas")
+    clean = use & (m.quality == 0)
+    drift = element_drift(m.net, m.y0, X[:, clean].T)
+    h2 = float(X[m.net.idx["H2"], use].max())
+    td = m.Tdust[use]
+    say(f"{tag} checks over {int(clean.sum())} clean cells: max "
+        f"abundance {X[:, clean].max():.4g} (tol < 1.5), Tgas in "
+        f"[{Tg[clean].min():.4g}, {Tg[clean].max():.4g}] K (tol (2, 3e4)), "
+        f"max element drift {drift.max():.2e} (tol 1e-2); max H2 over "
+        f"active cells {h2:.4g} (tol > 0.1); Tdust in [{td.min():.4g}, "
+        f"{td.max():.4g}] K")
+    if (X[:, clean] >= 1.5).any() \
+            or not ((Tg[clean] > 2.0) & (Tg[clean] < 3e4)).all():
+        raise Fail(f"{tag}: unphysical state in clean cells")
+    if not drift.max() < 0.01:
+        raise Fail(f"{tag}: elements drift by 1% or more")
+    if not h2 > 0.1:
+        raise Fail(f"{tag}: no H2 above 0.1")
+    if not (np.isfinite(td).all() and td.min() >= m.mc_cfg.TdustMin
+            and td.max() <= m.mc_cfg.TdustMax):
+        raise Fail(f"{tag}: Tdust outside [TdustMin, TdustMax]")
+    t0 = time.time()
+    rel = shielding_card_vs_cpu(m)
+    worst = max(r for r, _ in rel.values())
+    say(f"{tag} columns and shielding, card vs CPU from the final X "
+        "(max rel; entries both below the smallest normal float64): "
+        + ", ".join(f"{k} {r:.2e} ({n})" for k, (r, n) in rel.items())
+        + f" (tol 1e-12); {time.time() - t0:.1f} s")
+    if not worst <= 1e-12:
+        raise Fail(f"{tag}: columns on the card differ from the CPU's")
+
+
 def run_model(dev):
     """Phase 11: DiskModel(cfg).prepare() then run(n_iter=1) on the bench
     disk: the initial run_mc (K3, K4), reduce_fields, columns and
@@ -1256,47 +1341,10 @@ def run_model(dev):
             f"{ms['fates']}")
     say("phase 11 launches during run: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
-    q512 = int(((m.quality & 512) > 0)[use].sum())
-    say(f"phase 11 chemistry: converged {int(m.converged_cells.sum())}/"
-        f"{n_act} ({m.converged_cells.mean():.1%}); cells at quality 512: "
-        f"{q512} (tol {0.05 * n_act:.0f}, 5%)")
     if min(launches.values()) <= 0:
         raise Fail("phase 11: run did not launch every kernel "
                    f"({launches})")
-    if q512 > 0.05 * n_act:
-        raise Fail("phase 11: more than 5% of active cells at quality 512")
-    X, Tg = m.X, m.Tgas
-    if not (np.isfinite(X).all() and np.isfinite(Tg).all()):
-        raise Fail("phase 11: non-finite X or Tgas")
-    clean = use & (m.quality == 0)
-    drift = element_drift(m.net, m.y0, X[:, clean].T)
-    h2 = float(X[m.net.idx["H2"], use].max())
-    td = m.Tdust[use]
-    say(f"phase 11 checks over {int(clean.sum())} clean cells: max "
-        f"abundance {X[:, clean].max():.4g} (tol < 1.5), Tgas in "
-        f"[{Tg[clean].min():.4g}, {Tg[clean].max():.4g}] K (tol (2, 3e4)), "
-        f"max element drift {drift.max():.2e} (tol 1e-2); max H2 over "
-        f"active cells {h2:.4g} (tol > 0.1); Tdust in [{td.min():.4g}, "
-        f"{td.max():.4g}] K")
-    if (X[:, clean] >= 1.5).any() \
-            or not ((Tg[clean] > 2.0) & (Tg[clean] < 3e4)).all():
-        raise Fail("phase 11: unphysical state in clean cells")
-    if not drift.max() < 0.01:
-        raise Fail("phase 11: elements drift by 1% or more")
-    if not h2 > 0.1:
-        raise Fail("phase 11: no H2 above 0.1")
-    if not (np.isfinite(td).all() and td.min() >= m.mc_cfg.TdustMin
-            and td.max() <= m.mc_cfg.TdustMax):
-        raise Fail("phase 11: Tdust outside [TdustMin, TdustMax]")
-    t0 = time.time()
-    rel = shielding_card_vs_cpu(m)
-    worst = max(r for r, _ in rel.values())
-    say("phase 11 columns and shielding, card vs CPU from the final X "
-        "(max rel; entries both below the smallest normal float64): "
-        + ", ".join(f"{k} {r:.2e} ({n})" for k, (r, n) in rel.items())
-        + f" (tol 1e-12); {time.time() - t0:.1f} s")
-    if not worst <= 1e-12:
-        raise Fail("phase 11: columns on the card differ from the CPU's")
+    check_sane(m, "phase 11")
     t_all = time.time() - t_ph
     say(f"phase 11 done: {t_all:.1f} s (aim <= {RUN_MAX_S:g} s)")
     return launches, m
@@ -1712,6 +1760,224 @@ def check_cli_kernels(dev, toml, ckpt, width):
     return out
 
 
+# --------------------------------------------------------------------
+# the JAX package's end-to-end configuration at full width (phase 13)
+
+# the switches of tests/test_e2e_driver.py's fixture, with merging and the
+# hydrostatic bootstrap on (n_vert_iter_tdust: 2 MC + balance passes)
+E2E_SWITCHES = dict(evolT=False, do_vertical_with_Tdust=True,
+                    n_vert_iter_tdust=2, do_vertical_every=1,
+                    do_refine=True, do_merge=True)
+E2E_ITERS = 2
+E2E_AIM_S = 360.0
+EQ_CELLS = 64             # cells whose equilibrium T is solved on the CPU
+
+
+def column_sigma(g, n0, use):
+    """Per column, the sum of dz x n0 over the cells `use` marks (the
+    column surface density over the mean particle mass)."""
+    dz = g.zmax - g.zmin
+    return np.array([
+        float((dz * n0 * use)[g.col_cells[g.col_ptr[i]:g.col_ptr[i + 1]]]
+              .sum()) for i in range(g.n_columns)])
+
+
+def eq_T_card_vs_cpu(m):
+    """The equilibrium T of EQ_CELLS active cells, on the card and again on
+    the CPU from the same environments, y = [X, Tgas] and T0 = max(Tgas,
+    2): (cells, bracketed on each, flags equal, max |dT| over the allowed
+    1e-5 T + 0.1 K)."""
+    from rac2d_torch.ops.thermal import ThermalBalance
+    from rac2d_torch.utils.tree import tree_map
+    act = np.nonzero(m.grid.using)[0]
+    idx = act[np.linspace(0, len(act) - 1, EQ_CELLS).astype(int)]
+    env, tenv = m.assemble_envs(idx)
+    y = m._t(np.concatenate([m.X[:, idx].T, m.Tgas[idx][:, None]], axis=1))
+    T0 = m._t(np.maximum(m.Tgas[idx], 2.0))
+    Tc, bc = m.thermal.solve_equilibrium_T(y, env, tenv, T0, m.ode.tab)
+
+    def cpu(a):
+        return a.cpu()
+    th = ThermalBalance(m.net, config=m.cfg.hc, device="cpu")
+    Th, bh = th.solve_equilibrium_T(cpu(y), tree_map(cpu, env),
+                                    tree_map(cpu, tenv), cpu(T0),
+                                    tree_map(cpu, m.ode.tab))
+    Tc, bc = Tc.cpu().numpy(), bc.cpu().numpy()
+    Th, bh = Th.numpy(), bh.numpy()
+    worst = float((np.abs(Tc - Th) / (1e-5 * Th + 0.1)).max())
+    return len(idx), int(bc.sum()), int(bh.sum()), \
+        bool((bc == bh).all()), worst
+
+
+def finish_live_lanes(m, st, tag):
+    """A pass's lanes still walking at its step cap (MC_STEP_CAP), walked
+    on through K3 from where they stopped, on the pass's cells and the
+    model's grid: each must end within nmax_encounter more steps, which a
+    lane that diffuses (an encounter nearly every step, in cells made
+    optically thick by the hydrostatic compression) does and a lane stuck
+    in place (as the lanes of mcrt.edge_lanes once were, with few
+    encounters) does not."""
+    from rac2d_torch.ops import kernels, mcrt
+    pk = st.get("live_lanes")
+    if pk is None:
+        say(f"{tag} MC: no lane at the step cap")
+        return
+    pk = pk.clone()
+    dev = pk.x.device
+    cells = st["cells"]
+    e0 = pk.e_count.cpu().numpy()
+    c0 = pk.cell.cpu().numpy()
+    ws = mcrt.WalkSetup(mcrt.McModel(m.tab, m.gi, cells, m.cfg.star_mass),
+                        m.mc_cfg.n_quantile)
+    tl = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), m.n_dust, 5,
+                              device=dev)
+    steps, chunk = 0, 8192
+    while steps < m.mc_cfg.nmax_encounter \
+            and bool((pk.status == mcrt.ST_ACTIVE).any()):
+        kernels.mc_walk(ws, pk, tl, chunk, **walk_kw(m))
+        steps += chunk
+    fates = mcrt.packet_fates(pk.status)
+    n_gas = cells.n_gas.cpu().numpy()
+    say(f"{tag} MC: {len(e0)} lanes walking at the {MC_STEP_CAP}-step cap, "
+        f"encounters {int(e0.min())}..{int(e0.max())} each, in cells "
+        f"{sorted(set(c0.tolist()))} (n_gas {n_gas[c0].min():.3g}.."
+        f"{n_gas[c0].max():.3g} cm^-3); walked on through K3 for {steps} "
+        f"more steps: fates {fates}")
+    if fates["active"]:
+        raise Fail(f"{tag}: {fates['active']} lanes still walk "
+                   f"{steps} steps past the cap")
+
+
+def run_e2e(dev):
+    """Phase 13: the JAX package's end-to-end configuration through
+    DiskModel(cfg, "cuda").prepare() then run(n_iter=2) on the bench disk:
+    the hydrostatic bootstrap (MC, balance, twice), the initial MC,
+    fixed-T chemistry (K1/K2) and the equilibrium T in each iteration, the
+    re-balance and AMR after the first, and the MC pass (K3/K4) of the
+    second on the refined grid; then the checks of its docstring entry."""
+    import tempfile
+    from rac2d_torch import checkpoint
+    from rac2d_torch.ops import kernels, mcrt
+    t_ph = time.time()
+    m = bench_disk(dev, n_iter=E2E_ITERS, chem_stream=True, t_max=RUN_T_MAX,
+                   chem_chunk=RUN_CHUNK, **E2E_SWITCHES)
+    t_prep = time.time() - t_ph
+    n_act = int(m.grid.using.sum())
+    # the pool sweep's wall budget is chunk_wall_s x windows x nlocal_iter
+    # over the cells active when it starts (the bootstrap deactivates
+    # most of them): RUN_BUDGET_S for each window of RUN_CHUNK cells
+    m.cfg.chunk_wall_s = RUN_BUDGET_S / m.cfg.nlocal_iter
+    say(f"phase 13 setup: DiskModel.prepare {t_prep:.2f} s; {m.grid.n_cells} "
+        f"cells, {n_act} active; switches {E2E_SWITCHES}, refine_threshold "
+        f"{m.cfg.refine_threshold:g}, merge_tol {m.cfg.merge_tol:g}; "
+        f"{MC_NPH} packets x {m.cfg.n_mc_passes} MC passes, t_max "
+        f"{RUN_T_MAX:g} yr, chem_chunk {RUN_CHUNK}, n_iter {E2E_ITERS}, a "
+        f"sweep budget of {RUN_BUDGET_S:g} s a window")
+    kernels.reset_launches()
+    t0 = time.time()
+    m.run(n_iter=E2E_ITERS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = kernels.launch_counts()
+    for ln in m.log:
+        if "vertical balance" in ln or "stage timing" in ln \
+                or "AMR:" in ln or "equilibrium T:" in ln \
+                or "pool sweep:" in ln:
+            say(f"phase 13 log: {ln.strip()}")
+    say(f"phase 13 run: {wall:.2f} s; stage times " + "; ".join(
+        ", ".join(f"{k} {v:.2f} s" for k, v in st.items())
+        for st in m.stage_times))
+    n_vert = sum("vertical balance:" in ln for ln in m.log)
+    if n_vert != m.cfg.n_vert_iter_tdust + E2E_ITERS - 1:
+        raise Fail(f"phase 13: {n_vert} vertical passes")
+    refined = sum(int(ln.split()[2]) for ln in m.log
+                  if "AMR: refining" in ln)
+    if not refined:
+        raise Fail("phase 13: AMR refined no cell")
+    for ip, st in enumerate(m.mc_stats):
+        say(f"phase 13 MC pass {ip + 1} ({st['cells'].rmin.shape[0]} "
+            f"cells): {st['packets']} packets in {st['wall_s']:.2f} s, "
+            f"{st['chunks']} walk chunks ({st['tail_chunks']} with at most "
+            f"{mcrt.TAIL_LANES} live lanes), fates {st['fates']}")
+    last = m.mc_stats[-1]
+    f = last["fates"]
+    if last["cells"].rmin.shape[0] != m.grid.n_cells \
+            or sum(f.values()) != last["packets"] \
+            or f["premature"] + f["active"] > 1e-3 * last["packets"]:
+        raise Fail("phase 13: the MC pass on the refined grid")
+    finish_live_lanes(m, last, "phase 13")
+    say("phase 13 launches during run: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if min(launches.values()) <= 0:
+        raise Fail(f"phase 13: run did not launch every kernel ({launches})")
+    check_sane(m, "phase 13")
+    t1 = time.time()
+    n, bc, bh, same, dT = eq_T_card_vs_cpu(m)
+    say(f"phase 13 equilibrium T of {n} cells, card vs CPU: bracketed "
+        f"{bc} and {bh}, flags equal {same}; max |dT| / (1e-5 T + 0.1 K) "
+        f"{dT:.3e} (tol 1); {time.time() - t1:.1f} s")
+    if not same or not dT <= 1.0:
+        raise Fail("phase 13: the equilibrium T on the card and the CPU "
+                   "differ")
+    # K3 and K4 against their plain versions on the refined grid's state
+    lam, _, _ = m.packet_pool()
+    lanes = min(m.mc_cfg.max_batch, len(lam))
+    k3 = check_walk(m, dev, tag="phase 13", nph=None, batch=lanes,
+                    warm=False, edges=False)
+    k4 = check_fold(**k3, tag="phase 13")
+    kern = {key: {"B": lanes, "max_abs_err": r["err"], **{k: r[k] for k in (
+        "ms", "device_ms", "host_ms", "plain_ms", "bound_ms")}}
+        for key, r in (("K3", k3), ("K4", k4))}
+    del k3
+    # the refined model's checkpoint in a newly prepared model
+    t1 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_state(f"{tmp}/ck.npz", m, E2E_ITERS)
+        m2 = type(m)(m.cfg, dev)
+        m2.prepare()
+        it = checkpoint.load_state(f"{tmp}/ck.npz", m2)
+    same_hash = checkpoint._grid_hash(m2.grid) == checkpoint._grid_hash(
+        m.grid)
+    bad = [k for k in checkpoint._GRID_FIELDS
+           if not np.array_equal(getattr(m2.grid, k), getattr(m.grid, k))]
+    bad += [k for k in ("X", "Tgas", "Tdust", "Tdusts", "quality",
+                        "rho_dust")
+            if not np.array_equal(getattr(m2, k), getattr(m, k))
+            or getattr(m2, k).dtype != getattr(m, k).dtype]
+    m2.run_mc(n_passes=1)
+    st2 = m2.mc_stats[-1]
+    counted = sum(st2["fates"].values()) == st2["packets"]
+    say(f"phase 13 checkpoint of the refined model into a new model: iiter "
+        f"{it}, grid hash equal {same_hash}, arrays not bit-equal: "
+        f"{bad or 'none'}; its run_mc: {st2['packets']} packets, fates "
+        f"{st2['fates']}, every packet counted {counted}; "
+        f"{time.time() - t1:.1f} s")
+    if it != E2E_ITERS or not same_hash or bad or not counted:
+        raise Fail("phase 13: the refined model's checkpoint")
+    del m2
+    # a fixed-grid re-balance of the refined model keeps every column's
+    # surface density over the cells active before it (the cell bounds do
+    # not move); it changes the model, so it comes last
+    g = m.grid
+    n0, use = g.n0.copy(), g.using.copy()
+    t1 = time.time()
+    m.vertical_adjust()
+    s0 = column_sigma(g, n0, use)
+    s1 = column_sigma(g, g.n0, use)
+    ok = s0 > 0
+    rel = float((np.abs(s1 - s0)[ok] / s0[ok]).max())
+    say(f"phase 13 fixed-grid re-balance of the refined model: "
+        f"{time.time() - t1:.3f} s, active cells {int(use.sum())} -> "
+        f"{int(g.using.sum())}; max column surface density change "
+        f"{rel:.2e} over {int(ok.sum())} columns (tol 1e-12)")
+    if not rel <= 1e-12:
+        raise Fail("phase 13: a vertical pass changed a column's surface "
+                   "density")
+    t_all = time.time() - t_ph
+    say(f"phase 13 done: {t_all:.1f} s (aim <= {E2E_AIM_S:g} s)")
+    return launches, kern
+
+
 def main():
     t_all = time.time()
     # ---- 1. the card ----
@@ -1789,20 +2055,25 @@ def main():
             f"imaging {img}; command line {cli}; kernel launches in phases "
             f"12a-b {img_launches}, in the command line's run "
             f"{cli_launches}")
+        torch.cuda.empty_cache()
+        # ---- 13. the end-to-end configuration ----
+        e2e_launches, e2e_kern = run_e2e(dev)
         for row, key in zip(rows, ("K1", "K2")):
             row["launches"] = run_launches[key]
             row["launches_cli"] = cli_launches[key]
+            row["launches_e2e"] = e2e_launches[key]
             row["cli"] = cli_kern[key]
         res = {"mc_walk": (k3, mc_launches[0], run_launches["K3"],
-                           cli_launches["K3"], cli_kern["K3"]),
+                           cli_launches["K3"], cli_kern["K3"], "K3"),
                "fold_terminal": (k4, mc_launches[1], run_launches["K4"],
-                                 cli_launches["K4"], cli_kern["K4"])}
+                                 cli_launches["K4"], cli_kern["K4"], "K4")}
         for row, replaces, name in PROBES:
-            r, n, n_run, n_cli, cli = res[name]
+            r, n, n_run, n_cli, cli, key = res[name]
             rows.append({"name": f"{name} ({row})", "route": "cuda",
                          "source": MC_SOURCE, "replaces": replaces,
                          "launches": n_run, "launches_slice": n,
                          "launches_cli": n_cli,
+                         "launches_e2e": e2e_launches[key],
                          "max_abs_err": r["err"],
                          "ms": r["ms"], "device_ms": r["device_ms"],
                          "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
@@ -1810,7 +2081,7 @@ def main():
                          "library_ms": None,
                          **({"bound_all_fields_ms": r["bound_all_fields_ms"]}
                             if "bound_all_fields_ms" in r else {}),
-                         "cli": cli})
+                         "cli": cli, "e2e": e2e_kern[key]})
     except Fail as e:
         say(f"FAIL {e}")
         return 1

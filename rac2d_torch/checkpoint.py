@@ -7,11 +7,10 @@ a stage).  The state goes into a compressed npz archive with the same
 keys as the JAX package's, so that a checkpoint written by either package
 loads in the other.  A consistency check (a hash of the cell bounds)
 replaces the reference's check_consistency_of_loaded_data_phy
-(data_dump.f90:763).
+(data_dump.f90:763).  A checkpoint of another grid (an AMR-refined one)
+is adopted with the grid it embeds.
 
-Not ported: adopting a checkpoint's embedded AMR-refined grid
-(``restore_grid=True`` on a grid that differs; AMR is not ported), and
-the JAX package's orbax checkpoints for multi-host state.
+Not ported: the JAX package's orbax checkpoints for multi-host state.
 """
 
 from __future__ import annotations
@@ -69,26 +68,50 @@ def save_state(path, model, iiter=0):
 
 
 def load_state(path, model, check_consistency=True, restore_grid=True):
-    """Restore a dumped state (X, Tgas, Tdust, Tdusts, quality) into a
-    prepared DiskModel; returns the iteration it was saved at.
+    """Restore a dumped state (X, Tgas, Tdust, Tdusts, quality, and the
+    grid's densities) into a prepared DiskModel; returns the iteration it
+    was saved at.
 
-    A checkpoint of another grid raises ValueError with restore_grid=False
-    (the reference's consistency check, data_dump.f90:763), and
-    NotImplementedError with restore_grid=True when the file embeds its
-    grid: adopting it is AMR's restore, not ported yet."""
+    restore_grid=True (default): where the checkpoint's grid differs from
+    the model's (the run was AMR-refined) and the file embeds it, adopt
+    the stored grid and rho_dust through model.adopt_grid, rebuilding the
+    geometry (the reference's use_backup_grid_data restore).  With
+    restore_grid=False a differing grid raises ValueError (the reference's
+    consistency check, data_dump.f90:763).
+
+    Departure from the JAX package, in the port only: on the same grid,
+    the file's grid_n0, grid_using and rho_dust are restored too, and the
+    per-cell quantities derived from them rebuilt.  The grid hash covers
+    the cell bounds only, so a fixed-grid vertical re-balance
+    (vertical.pressure_gravity_balance), which changes n0, using and
+    rho_dust, leaves it as it was; the JAX package's load_state then goes
+    on from the initial densities without a word.  The file format is the
+    same in both packages."""
     with np.load(path) as d:
         want = _grid_hash(model.grid)
         got = bytes(d["grid_hash"].tobytes()).hex()
         if got != want:
             if restore_grid and "grid_rmin" in d.files:
-                raise NotImplementedError(
-                    f"checkpoint grid hash {got} != current grid {want}: "
-                    "adopting the checkpoint's grid (AMR, queue item 9c) "
-                    "is not ported yet")
-            if check_consistency:
+                from .models.grid import Grid
+                model.adopt_grid(
+                    Grid(**{k: d[f"grid_{k}"] for k in _GRID_FIELDS}),
+                    rho_dust=d["rho_dust"] if "rho_dust" in d.files
+                    else None)
+            elif check_consistency:
                 raise ValueError(
                     f"checkpoint grid hash {got} != current grid "
                     f"{want}; refusing to restore onto a different grid")
+        elif {"grid_n0", "grid_using", "rho_dust"} <= set(d.files):
+            n0, using, rho_dust = d["grid_n0"], d["grid_using"], d["rho_dust"]
+            # the derived state (and the shielding cache) goes stale only
+            # where the densities differ
+            if not (np.array_equal(n0, model.grid.n0)
+                    and np.array_equal(using, model.grid.using)
+                    and np.array_equal(rho_dust, model.rho_dust)):
+                model.grid.n0 = n0
+                model.grid.using = using
+                model.rho_dust = rho_dust
+                model._derive_cell_state()
         model.X = d["X"]
         model.Tgas = d["Tgas"]
         model.Tdust = d["Tdust"]

@@ -138,6 +138,21 @@ def path_matrix(W, device="cuda") -> columns.PathMatrix:
         n_cells=int(W.n_cells))
 
 
+def model_grid(jmodel, model):
+    """Carry a JAX DiskModel's grid (every array the checkpoint embeds) and
+    rho_dust into a prepared DiskModel of this package, in place, through
+    its adopt_grid: the geometry (grid index, path matrices) is rebuilt on
+    the model's device, so that both packages go on from the same
+    rebalanced or refined grid.  The evolving state follows with
+    model_state.  Returns the model."""
+    from .checkpoint import _GRID_FIELDS
+    from .models.grid import Grid
+    model.adopt_grid(
+        Grid(**{k: np.array(getattr(jmodel.grid, k)) for k in _GRID_FIELDS}),
+        rho_dust=np.array(jmodel.rho_dust, dtype=np.float64))
+    return model
+
+
 def model_state(jmodel, model):
     """Carry a prepared JAX DiskModel's evolving state into a prepared
     DiskModel of this package on the same grid, in place: X, Tgas,

@@ -12,14 +12,16 @@ matrices), the per-cell state, ``run_mc`` on a single device (the streamed
 pass, whose walk and terminal fold are kernels K3 and K4 on a CUDA
 device), ``prepare_sweep_fields`` and ``assemble_envs`` (columns,
 self-shielding and the per-cell environments, float64 on the model's
-device), the pool chemistry sweep on its ``evolT=True`` branch (whose
-Newton factor and solve are kernels K1 and K2), ``chemistry_step`` with its
-convergence bookkeeping, ``run`` with its per-iteration outputs
+device), the pool chemistry sweep (whose Newton factor and solve are
+kernels K1 and K2) on both branches, ``evolT=True`` (the coupled
+chemistry and temperature) and ``evolT=False`` (fixed-T chemistry, then
+the equilibrium temperature by bisection), ``chemistry_step`` with its
+convergence bookkeeping, the hydrostatic vertical structure
+(``vertical_bootstrap``, ``vertical_adjust``), AMR refine/merge
+(``amr_step``, ``adopt_grid``), ``run`` with its per-iteration outputs
 (``save_dir``), and ``sed``.  Not ported yet, each raising
-``NotImplementedError`` when asked for: ``evolT=False`` (the
-equilibrium-temperature update), ``chem_stream=False`` (the chunked
-sweep), the vertical structure, AMR refine/merge; the sharded
-multi-device pass.
+``NotImplementedError`` when asked for: ``chem_stream=False`` (the chunked
+sweep), the gas-dust energy-exchange modes; the sharded multi-device pass.
 """
 
 from __future__ import annotations
@@ -47,9 +49,10 @@ from .grid import Grid, GridConfig, make_grid
 # program; there a lane that finishes early waits for the call's slowest
 # lane.  On the card the loop is host-driven and a refill costs a few host
 # reads, so the window is refilled more often (PERF.md §5).  A lane's
-# solution does not depend on its slot or on the round it starts in:
-# tests/test_torch_run.py runs more cells than window slots through both
-# packages and compares the results.
+# solution does not depend on its slot or on the round it starts in, as
+# tests/test_torch_run.py shows on more cells than window slots in both
+# packages; a stiff lane's can, through the window's shared Newton
+# refresh (ROADMAP.md §3).
 POOL_ROUNDS_PER_CALL = 32
 
 
@@ -118,16 +121,22 @@ class DiskConfig:
     minimum_Tdust: float = 1.0
     dust_depletion: float = 1.0
     hc: thermal.HcConfig = dataclasses.field(default_factory=thermal.HcConfig)
-    # hydrostatic vertical structure and AMR refine/merge (reference
-    # disk.f90:984-1093, 3646-4033): not ported; run refuses them when on
+    # hydrostatic vertical structure (reference
+    # do_vertical_struct_with_Tdust, disk.f90:984-1093) and its re-balance
+    # every k-th iteration
     do_vertical_with_Tdust: bool = False
     n_vert_iter_tdust: int = 4
     do_vertical_every: int = 0        # 0 = off
+    # moving-grid hydrostatic variant (reference
+    # vertical_structure.f90:354-518) instead of the fixed-grid one
     vertical_moving: bool = False
     disk_gas_mass_preset: float | None = None
+    # AMR refine/merge during iteration (reference disk.f90:3646-4033)
     do_refine: bool = False
     do_merge: bool = False
     refine_watch_species: tuple = ("H2", "H2O", "CO", "E-")
+    # reference-format watch-list file (species_check_refine.dat); overrides
+    # refine_watch_species when set
     refine_watch_file: str | None = None
     refine_threshold: float = 10.0
     merge_tol: float = 1.5
@@ -272,8 +281,33 @@ class DiskModel:
         self.say(f"prepare done in {time.time() - t0:.1f}s")
 
     # ------------------------------------------------------------------
+    def adopt_grid(self, new_grid, rho_dust=None):
+        """Swap in another grid (the checkpoint restore of an AMR-refined
+        mesh, reference use_backup_grid_data) and rebuild every
+        geometry-dependent structure on the model's device.  The caller
+        supplies the matching per-cell state afterwards (or rho_dust
+        here)."""
+        self.grid = new_grid
+        if rho_dust is not None:
+            self.rho_dust = rho_dust
+        elif self.rho_dust.shape[1] != new_grid.n_cells:
+            # keep shapes coherent until the caller restores the real
+            # per-cell state
+            self.rho_dust = np.zeros((self.n_dust, new_grid.n_cells))
+        self._rebuild_geometry()
+        self._derive_cell_state()
+        self.fields = None
+
+    def _rebuild_geometry(self):
+        """The grid index and both path matrices, on the model's device,
+        for the grid as it now is."""
+        self.gi = geometry.build_grid_index(self.grid, self.device)
+        self.W_star, self.W_ism = columns.build_path_matrices(
+            self.grid, self.gi, device=self.device)
+
     def _derive_cell_state(self):
-        """Per-cell quantities derived from (grid, rho_dust)."""
+        """Per-cell quantities derived from (grid, rho_dust); re-run after
+        any density (vertical balance) or geometry (AMR) change."""
         cfg = self.cfg
         g = self.grid
         n = g.n_cells
@@ -288,11 +322,114 @@ class DiskModel:
         rc, zc = g.centers()
         self.r_cells = rc
         self.z_cells = zc
+        # the sweep-level shielding cache is stale after any density or
+        # geometry change
+        self._shield = None
         self.omega_K = np.sqrt(c.GravitationConst_CGS * cfg.star_mass
                                * c.Msun_CGS / (rc * c.AU2cm) ** 3)
         self.velo_grad = 0.5 * np.sqrt(
             c.GravitationConst_CGS * cfg.star_mass * c.Msun_CGS
             / (rc * c.AU2cm)) / (rc * c.AU2cm)
+
+    def vertical_adjust(self):
+        """Hydrostatic re-balance of the gas columns from the current
+        Tdust, on the host (reference vertical_structure.f90: the
+        fixed-grid `_alt` variant, or with cfg.vertical_moving the
+        moving-grid `_balance` + `shift_and_scale_above`).  Called by the
+        Tdust bootstrap and every do_vertical_every iterations.  Returns
+        whether every rescale factor lies in [0.5, 2] (reference
+        disk.f90:1082-1085)."""
+        from ..ops import vertical
+        cfg = self.cfg
+        g = self.grid
+        m_before = vertical.disk_gas_mass(g, g.n0)
+        T = np.maximum(self.Tdust, cfg.minimum_Tdust)
+        if cfg.vertical_moving:
+            zmin_n, zmax_n, n_new, rho_d_new, maxf, minf = \
+                vertical.pressure_gravity_balance_moving(
+                    g, g.n0, T, self.rho_dust, cfg.star_mass,
+                    use_Tdust=True, zmax_dom=cfg.grid.zmax)
+            g.zmin = zmin_n
+            g.zmax = zmax_n
+            # the grid moved: its index and path matrices with it
+            self._rebuild_geometry()
+            using_new = g.using
+        else:
+            n_new, rho_d_new, using_new, maxf, minf = \
+                vertical.pressure_gravity_balance(
+                    g, g.n0, T, self.rho_dust, cfg.star_mass,
+                    use_Tdust=True, pmass=self.pmass,
+                    disk_gas_mass_preset=cfg.disk_gas_mass_preset)
+        g.n0 = n_new
+        g.using = using_new
+        self.rho_dust = rho_d_new
+        self._derive_cell_state()
+        m_after = vertical.disk_gas_mass(g, g.n0)
+        self.say(f"  vertical balance: gas mass {m_before:.4e} -> "
+                 f"{m_after:.4e} Msun, rescale range [{minf:.3g}, {maxf:.3g}]")
+        return (maxf <= 2.0) and (minf >= 0.5)
+
+    def vertical_bootstrap(self):
+        """Alternate MC and hydrostatic passes until the rescale factors
+        settle, at most n_vert_iter_tdust times (reference
+        do_vertical_struct_with_Tdust, disk.f90:984-1093)."""
+        cfg = self.cfg
+        for j in range(cfg.n_vert_iter_tdust):
+            self.say(f"vertical-structure pass {j + 1}/"
+                     f"{cfg.n_vert_iter_tdust}")
+            self.run_mc(seed=1000 + j)
+            if self.vertical_adjust() and j >= 1:
+                self.say("  vertical structure converged (with Tdust)")
+                break
+
+    def amr_step(self):
+        """Refine cells on chemistry fronts and (with cfg.do_merge) merge
+        uniform vertical pairs, on the host; remap the per-cell state and
+        rebuild the geometry on the device (reference do_refine /
+        merge_cells + remake_index, disk.f90:3646-4033, 3887).  The fields
+        are dropped; the tallies keep the old grid's length until the next
+        MC pass, which rebuilds both.  Returns whether the grid changed."""
+        from . import amr
+        cfg = self.cfg
+        if cfg.refine_watch_file:
+            watch, min_abun = amr.load_watch_list(cfg.refine_watch_file,
+                                                  self.net)
+        else:
+            watch = np.asarray([self.net.idx[s]
+                                for s in cfg.refine_watch_species
+                                if s in self.net.idx])
+            min_abun = 1e-15
+        mask = amr.need_refine(self.grid, self.X, watch,
+                               thresh=cfg.refine_threshold,
+                               min_abun=min_abun,
+                               min_dz=cfg.grid.smallest_cell_size)
+        pairs = []
+        if cfg.do_merge and self.fields is not None:
+            pairs = amr.need_merge(
+                self.grid, self.grid.n0, self.Tdust,
+                self.fields.Av_toStar.cpu().numpy(), tol=cfg.merge_tol)
+            # never merge a pair involving a refine-marked cell, nor a cell
+            # in two pairs (a departure from the JAX package, which leaves
+            # a hole in the column there; amr.disjoint_pairs)
+            pairs = amr.disjoint_pairs(
+                [(a, b) for a, b in pairs if not (mask[a] or mask[b])])
+        if not mask.any() and not pairs:
+            return False
+        self.say(f"  AMR: refining {int(mask.sum())} cells, "
+                 f"merging {len(pairs)} pairs")
+        n_was, act_was = self.grid.n_cells, int(self.grid.using.sum())
+        self.grid, parent = amr.adapt_grid(self.grid, mask, pairs)
+        self._rebuild_geometry()
+        (self.X, self.Tgas, self.Tdust, self.Tdusts, self.quality,
+         self.rho_dust) = amr.remap_state(
+            parent, self.X, self.Tgas, self.Tdust, self.Tdusts,
+            self.quality, self.rho_dust)
+        self._derive_cell_state()
+        self.fields = None
+        self.say(f"  AMR: grid now {self.grid.n_cells} cells, "
+                 f"{int(self.grid.using.sum())} active (was {n_was}, "
+                 f"{act_was})")
+        return True
 
     # ------------------------------------------------------------------
     def mc_cells(self) -> mcrt.McCells:
@@ -571,21 +708,16 @@ class DiskModel:
         return self._visser
 
     # ------------------------------------------------------------------
-    def _refuse_unported(self, loop=True):
-        """Raise NotImplementedError for an option whose code path is not
-        ported yet: the chemistry sweep's, and with loop those of run."""
+    def _refuse_unported(self):
+        """Raise NotImplementedError, before any work, for an option of
+        the chemistry sweep whose code path is not ported yet."""
         cfg = self.cfg
-        asks = [("evolT=False (equilibrium-temperature update)",
-                 not cfg.evolT, "thermal.solve_equilibrium_T"),
-                ("chem_stream=False (chunked sweep)", not cfg.chem_stream,
-                 "the chunked sweep")]
-        if loop:
-            asks += [("do_vertical_with_Tdust", cfg.do_vertical_with_Tdust,
-                      "the vertical structure"),
-                     ("do_vertical_every", cfg.do_vertical_every > 0,
-                      "the vertical structure"),
-                     ("do_refine", cfg.do_refine, "AMR"),
-                     ("do_merge", cfg.do_merge, "AMR")]
+        hc = cfg.hc
+        asks = [("chem_stream=False (chunked sweep)", not cfg.chem_stream,
+                 "the chunked sweep"),
+                ("hc: gas-dust energy exchange",
+                 hc.allow_gas_dust_en_exch or hc.tdust_iter_tandem
+                 or hc.dust_gas_linear_couple, "the exchange modes")]
         for name, asked, item in asks:
             if asked:
                 raise NotImplementedError(
@@ -595,7 +727,8 @@ class DiskModel:
         """Stream all active cells through one constant-width solver
         window (odesys.solve_pool): finished lanes retire and refill
         from the pool, the per-lane tolerance ladder replaces the
-        chunk-level re-solve ladder.  evolT=True only.  Returns the
+        chunk-level re-solve ladder.  With evolT=False the gas temperature
+        is then set to its equilibrium (_equilibrium_T).  Returns the
         indices of cells that failed every ladder level."""
         cfg = self.cfg
         nS = self.net.n_species
@@ -605,7 +738,12 @@ class DiskModel:
             + (time.time() - t_env0)
         y0b = self._t(np.ascontiguousarray(self.X[:, act].T))
         T0b = self._t(self.Tgas[act])
-        d2g = float(self.d2h.mean())
+        # the dust-to-H ratio of the tolerance ladder (grain atols): the
+        # mean over the cells solved.  In the port only: the JAX package
+        # averages over every cell, and a hydrostatic pass that empties a
+        # cell of gas (n0 -> 0, the dust kept) makes that mean ~1e161, so
+        # the grain species lose all error control
+        d2g = float(self.d2h[act].mean())
         rtol, atol = odesys.tolerance_ladder(
             self.net, 1, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
         retry = self.ode.retry_ladder(
@@ -628,14 +766,45 @@ class DiskModel:
         ok = ~res.fail.numpy()
         yf = res.ys[:, -1, :].numpy()
         self.X[:, act[ok]] = yf[ok, :nS].T
-        self.Tgas[act[ok]] = yf[ok, nS]
+        if cfg.evolT:
+            self.Tgas[act[ok]] = yf[ok, nS]
         lvl = res.retry_level.numpy().astype(int)
         self.say(f"    pool sweep: {len(act)} cells, width {W}, "
                  f"{int(res.n_steps.sum())} steps, "
                  f"{int((~ok).sum())} failed, ladder levels "
                  f"{np.bincount(lvl, minlength=4).tolist()}, "
-                 f"{time.time() - t0:.1f}s")
+                 f"{res.n_rounds} BDF rounds, {time.time() - t0:.1f}s"
+                 + (f" of a {wall:.0f}s budget" if wall else ""))
+        if not cfg.evolT:
+            self._equilibrium_T(act, ok, W)
         return act[~ok]
+
+    def _equilibrium_T(self, act, ok, W):
+        """The evolT=False temperature update, as the JAX package's pool
+        sweep makes it: in windows of W cells (the last padded by
+        repeating its last cell), each with its environments assembled
+        afresh, y = [X after the sweep, Tgas] and T0 = max(Tgas, 2) K,
+        solve_equilibrium_T; a cell takes the new T only where it was
+        both bracketed and solved (ok)."""
+        t0 = time.time()
+        n_brk = 0
+        for lo in range(0, len(act), W):
+            idx = act[lo:lo + W]
+            n_real = len(idx)
+            if n_real < W:
+                idx = np.concatenate([idx, np.repeat(idx[-1:], W - n_real)])
+            env, tenv = self.assemble_envs(idx)
+            y = self._t(np.concatenate([self.X[:, idx].T,
+                                        self.Tgas[idx][:, None]], axis=1))
+            Teq, brk = self.thermal.solve_equilibrium_T(
+                y, env, tenv, self._t(np.maximum(self.Tgas[idx], 2.0)),
+                self.ode.tab)
+            brk = brk.cpu().numpy()[:n_real]
+            n_brk += int(brk.sum())
+            upd = brk & ok[lo:lo + n_real]
+            self.Tgas[idx[:n_real][upd]] = Teq.cpu().numpy()[:n_real][upd]
+        self.say(f"    equilibrium T: {n_brk} cells bracketed, "
+                 f"{len(act) - n_brk} not, {time.time() - t0:.1f}s")
 
     # ------------------------------------------------------------------
     def chemistry_step(self, iiter=1):
@@ -643,7 +812,7 @@ class DiskModel:
 
         Cells are ordered by density so that neighbouring lanes of the
         window are similarly stiff.  Returns the converged fraction."""
-        self._refuse_unported(loop=False)
+        self._refuse_unported()
         cfg = self.cfg
         act = np.nonzero(self.grid.using)[0]
         act = act[np.argsort(self.grid.n0[act])]
@@ -682,17 +851,25 @@ class DiskModel:
 
     # ------------------------------------------------------------------
     def run(self, n_iter=None, save_dir=None):
-        """The fixed-point loop: the initial MC, then per iteration a MC
-        run (from the second on), the chemistry sweep and the convergence
-        check.  Each iteration's stage times (s) go to self.stage_times
-        and a "stage timing" line, printed before the convergence check
-        (the JAX package prints it after, so not on the last iteration
-        of a converged run).  save_dir: if given, the per-cell table of
-        every iteration goes to save_dir/iter_NNNN.npz after its
-        chemistry step, before the convergence check (reference
-        iter_NNNN.dat, disk.f90:2745-3074)."""
-        n_iter = self.cfg.n_iter if n_iter is None else n_iter
+        """The fixed-point loop: with do_vertical_with_Tdust the hydrostatic
+        bootstrap (vertical_bootstrap), the initial MC, then per iteration
+        a MC run (from the second on), the chemistry sweep and the
+        convergence check; after the check, while it < n_iter, the
+        hydrostatic re-balance (vertical_adjust, every do_vertical_every
+        iterations) and AMR (amr_step, with do_refine).  Each iteration's
+        stage times (s) go to self.stage_times ("vertical" and "amr" where
+        those are switched on) and two "stage timing" lines: the first
+        before the convergence check (the JAX package prints one line
+        after the re-balance and AMR, so none on the last iteration of a
+        converged run), the second with the re-balance and AMR.  save_dir:
+        if given, the per-cell table of every iteration goes to
+        save_dir/iter_NNNN.npz after its chemistry step, before the
+        convergence check (reference iter_NNNN.dat, disk.f90:2745-3074)."""
+        cfg = self.cfg
+        n_iter = cfg.n_iter if n_iter is None else n_iter
         self._refuse_unported()
+        if cfg.do_vertical_with_Tdust:
+            self.vertical_bootstrap()
         self.say("initial Monte Carlo (Tdust bootstrap)...")
         t_st = time.time()
         self.run_mc()
@@ -719,7 +896,23 @@ class DiskModel:
                 p = pathlib.Path(save_dir) / f"iter_{it:04d}.npz"
                 outmod.save_iter_npz(p, self, it)
                 self.say(f"  saved {p}")
-            if frac >= self.cfg.converged_fraction:
+            if frac >= cfg.converged_fraction:
                 self.say("converged.")
                 break
+            if it == n_iter:
+                break
+            after = {}
+            if cfg.do_vertical_every > 0:
+                t_st = time.time()
+                if it % cfg.do_vertical_every == 0:
+                    self.vertical_adjust()
+                after["vertical"] = time.time() - t_st
+            if cfg.do_refine:
+                t_st = time.time()
+                self.amr_step()
+                after["amr"] = time.time() - t_st
+            if after:
+                stage_t.update(after)
+                self.say("  stage timing: " + "  ".join(
+                    f"{k} {v:.1f}s" for k, v in after.items()))
         return self

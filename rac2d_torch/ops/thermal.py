@@ -9,10 +9,11 @@ src/disk.f90:4653-4657,4739).
 
 The nested-NLTE cooling paths of the reference are replaced by the
 analytic and LUT paths the reference itself prefers by default, as in the
-JAX package.  The gas-dust energy-exchange modes (``tdust_iter_tandem``,
-``dust_gas_linear_couple``, ``allow_gas_dust_en_exch``) and the
-equilibrium-temperature solve of the ``evolT=False`` sweep are not ported
-yet: switching them on raises ``NotImplementedError``.
+JAX package.  ``solve_equilibrium_T`` gives the equilibrium temperature
+of the ``evolT=False`` sweep.  The gas-dust energy-exchange modes
+(``tdust_iter_tandem``, ``dust_gas_linear_couple``,
+``allow_gas_dust_en_exch``) are not ported yet: switching them on raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -573,6 +574,61 @@ class ThermalBalance:
     def net_rate(self, y, Tgas, env, tenv, k=None):
         """Gamma - Lambda [erg cm^-3 s^-1], [B]."""
         return self.rates(y, Tgas, env, tenv, k).net()
+
+    def solve_equilibrium_T(self, y, env, tenv, T0, tab, n_expand=60,
+                            n_bisect=80, rtol=1e-5, atol=1e-1,
+                            diff2des=0.5, h2_form_use_moeq=False):
+        """Equilibrium Tgas of each lane from Gamma(T) = Lambda(T) by
+        bracketed bisection (reference solve_bisect_T,
+        src/heating_cooling.f90:1273-1403): expand a bracket around T0
+        (bounds floored at 1 K) until the net rate changes sign, then
+        bisect until the bracket is narrower than rtol x its mid-point +
+        atol.  y: [B, nS(+1)] (a last column is set to the trial T); T0:
+        [B].  Returns (T [B], bracketed [B]), T0 where no bracket was
+        found.
+
+        The lanes run as the JAX package's while loops run under vmap: a
+        lane whose loop condition no longer holds keeps its bracket while
+        the others go on, so each lane gets the T it would get alone.  A
+        step evaluates the net rate once a lane, at the bound that moves.
+        """
+        from .rates import compute_rates
+        nS = self.net.n_species
+
+        def fnet(T):
+            k = compute_rates(tab, env, T, diff2des, h2_form_use_moeq)
+            yT = y
+            if y.shape[-1] == nS + 1:
+                yT = y.clone()
+                yT[:, nS] = T
+            return self.net_rate(yT, T, env, tenv, k)
+
+        x1, x2 = T0 / 1.1, T0 * 1.1
+        f1, f2 = fnet(x1), fnet(x2)
+        for _ in range(n_expand):
+            go = f1 * f2 > 0.0
+            if not bool(go.any()):
+                break
+            move1 = torch.abs(f1) < torch.abs(f2)
+            x1n = torch.clamp_min(x1 + 0.5 * (x1 - x2), 1.0)
+            x2n = torch.clamp_min(x2 + 0.5 * (x2 - x1), 1.0)
+            fn = fnet(torch.where(move1, x1n, x2n))
+            lo, hi = go & move1, go & ~move1
+            x1, f1 = torch.where(lo, x1n, x1), torch.where(lo, fn, f1)
+            x2, f2 = torch.where(hi, x2n, x2), torch.where(hi, fn, f2)
+        bracketed = f1 * f2 <= 0.0
+        for _ in range(n_bisect):
+            # a lane without a bracket returns T0 whatever it bisects to
+            go = bracketed & ((x2 - x1) > (rtol * 0.5 * (x1 + x2) + atol))
+            if not bool(go.any()):
+                break
+            xm = 0.5 * (x1 + x2)
+            fm = fnet(xm)
+            lo = fm * f1 < 0.0
+            up, down = go & ~lo, go & lo
+            x1, f1 = torch.where(up, xm, x1), torch.where(up, fm, f1)
+            x2, f2 = torch.where(down, xm, x2), torch.where(down, fm, f2)
+        return torch.where(bracketed, 0.5 * (x1 + x2), T0), bracketed
 
     def dTdt(self, y, T, env, tenv, k):
         """dT/dt [K/yr] given rate coefficients k (reference

@@ -19,6 +19,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from torch_cli_fixtures import MAX_CELLS, NCOL, seeded_models
 from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
@@ -257,8 +258,18 @@ def test_load_state_onto_another_grid_raises(models, tmp_path):
     other.prepare()
     with pytest.raises(ValueError, match="grid hash"):
         tck.load_state(tmp_path / "ck.npz", other, restore_grid=False)
-    with pytest.raises(NotImplementedError, match="9c"):
-        tck.load_state(tmp_path / "ck.npz", other)
+    # by default the checkpoint's grid is adopted, with its geometry
+    assert tck.load_state(tmp_path / "ck.npz", other) == 1
+    assert tck._grid_hash(other.grid) == tck._grid_hash(tm.grid)
+    for k in tck._GRID_FIELDS:
+        np.testing.assert_array_equal(getattr(other.grid, k),
+                                      getattr(tm.grid, k), k)
+    for k in ("X", "Tgas", "Tdust", "Tdusts", "quality", "rho_dust"):
+        np.testing.assert_array_equal(getattr(other, k), getattr(tm, k), k)
+    assert other.gi.cell_of.shape == tm.gi.cell_of.shape
+    for W in ("W_star", "W_ism"):
+        assert torch.equal(getattr(other, W).rows, getattr(tm, W).rows)
+    assert other.fields is None
 
 
 def test_iter_table_equal_jax(models, tmp_path):

@@ -133,6 +133,7 @@ def test_port_imports_no_jax():
             "rac2d_torch.checkpoint, rac2d_torch.models.output, "
             "rac2d_torch.models.imaging, rac2d_torch.ops.raytrace, "
             "rac2d_torch.ops.stateq, rac2d_torch.ops.linalg, "
+            "rac2d_torch.ops.vertical, rac2d_torch.models.amr, "
             "rac2d_torch.ops.analysis\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in "
