@@ -31,7 +31,7 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      shipped network (NEQ=485), window W=256, per-lane retry ladder of 3
      levels, over a pool of 512 random disk cells (the bench.py recipe,
      seed 0) plus the 3 production cells of tests/test_chem_production.py,
-     1e-8 -> T_MAX = 1 yr; the kernels' launch counts over this run must
+     1e-8 -> T_MAX = 1e-4 yr; the kernels' launch counts over this run must
      be > 0 (printed with the BDF round count and launches per round), and the
      final states must be finite, physical and conserve elements;
   6. 8 of those lanes re-solved with the plain LU on the card: key
@@ -91,7 +91,7 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      run_mc (2 passes of 1e6 packets, K3/K4), reduce_fields, the columns
      and self-shielding through the path matrices, env assembly, and the
      pool sweep over all 4557 active cells at NEQ=485 (K1/K2) to
-     RUN_T_MAX in windows of RUN_CHUNK, with a sweep wall budget of
+     MAIN_T_MAX in windows of RUN_CHUNK, with a sweep wall budget of
      RUN_BUDGET_S (chunk_wall_s from it); then the convergence
      bookkeeping.  It prints the prepare and path-trace times, the nnz of
      both path matrices, the depth cuts, the stage timing line, K1-K4
@@ -121,7 +121,7 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      1e-10, the same cells converged), and 9x9 rays of each cube traced
      again on the CPU (within 1e-9 of the cube's maximum); (c)
      `python -m rac2d_torch` (no --device: the card) on the tables of
-     examples/verify_model.toml with t_max 1e-4 yr in one window of 256,
+     examples/verify_model.toml with t_max 1e-5 yr in one window of 256,
      per-iteration tables, one analysis point and NLTE lines, --iters 1,
      then resumed from its checkpoint with --iters 0: both exit 0 and
      write every output file (iter_0001.npz in the first), every FITS
@@ -168,26 +168,61 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      call) that a fixed-grid re-balance of the refined model changes by
      more than 1e-12 relative.  Each sweep's wall budget is RUN_BUDGET_S
      a window of RUN_CHUNK cells; the pool sweep's log line gives it.
-     Phase 13 aims at <= 360 s.
+     Then merging on the card: amr_step with refinement off at the
+     smallest merge_tol of MERGE_TOLS that gives disjoint uniform pairs
+     (the pair counts of each printed), one MC pass on the merged grid,
+     K3/K4 against their plain versions there and its columns card vs CPU
+     within 1e-12; it fails if nothing merged.  Phase 13 aims at <= 360 s;
+ 14. the rest of the chemistry solver: (a) `python -m rac2d_torch` (no
+     --device) on phase 12c's TOML with t_max 1e-4 yr, chem_stream =
+     false (183 cells in one chunk of 256 lanes) and [heating_cooling]
+     with allow_gas_dust_en_exch, tdust_iter_tandem and
+     dust_gas_linear_couple, --iters 1: exit 0, every output file, the
+     chunk lines and K1-K4 in its log, phase 11's physical bars on its
+     checkpoint's state; (b) on phase 11's model after phase 12, 512 of
+     its active cells (seed 0) from one snapshot of X and Tgas, evolT, to
+     phase 11's MAIN_T_MAX, exchange off: the pool sweep at width 256 and
+     the chunked sweep in chunks of 256, each with its BDF rounds, wall time,
+     ms/round, failed cells and K1/K2 launches and held to phase 11's
+     physical bars, then the worst and median key-species difference
+     between the two over the cells clean in both (no bar: it measures how
+     far a lane's solution depends on its window mates); (c) 256 of those
+     cells in one window of the pool sweep with the ThermalBalance rebuilt
+     with the Tdust LUT and all three exchange modes: ms/round and K1/K2
+     launches a round against (b)'s pool, the CUDA kernels one RHS and one
+     Jacobian evaluation launch with the modes off and on (torch.profiler),
+     phase 11's physical bars, and every heating/cooling rate of 64 cells,
+     card vs CPU from the same inputs, within 1e-9 relative (absolute
+     floor 1e-40); (d) ChemicalODE.solve on the dark-cloud cell of
+     tests/test_single_cell.py to 1e2 yr on the card and on the CPU (key
+     species within 1%), and solve_batched(continuous=True, retry_tols=...)
+     on phase 5's 3 COUPLED_CELLS to T_MAX, within 5% of phase 5's final
+     states.  Phase 14 aims at <= 300 s.
 Phases 7 and 8 also print the bounds of K3 and K4 (bytes: for K3 the
 packet state read and written once, the tables read once, the tally bins
 the run touched read and written once; for K4 the two bases above); no
 single PyTorch call computes either.
-Phases 5-6 run to T_MAX = 1 yr (1e2 yr until phase 11 was added): at 1e2
-yr they took 644 s on an H100 80GB HBM3 (700 W) and the whole script
-1018 s.
+Depth cuts for the time limit: phases 5-6 run to T_MAX = 1e-4 yr (1 yr
+until phase 14 was added, 1e2 yr until phase 11 was), phase 11 to
+MAIN_T_MAX = 1e-5 yr (and phase 14b-c, which solve from its state) and
+phase 12c to 1e-5 yr (1e-4 until phase 14).  With phase 14 and the
+earlier depths the script took 1405 s on an H100 80GB HBM3 (700 W), past
+its 1200 s limit.
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
 for each TPU probe kernel that K3 or K4 replaces, each with its time,
 bound, plain and library times and launches: `launches` over phase 11's
 run, `launches_slice` over phase 5 (K1/K2) or phase 9 (K3/K4),
 `launches_cli` over phase 12c's command-line run (read from its log; the
 imaging of phases 12a-b launches none), `launches_e2e` over phase 13's
-run; the K1/K2
+run, `launches_cli_chunked` over phase 14a's command-line run (from its
+log), and for K1/K2 `launches_chunked` over phase 14b's chunked sweep and
+`launches_exchange` over phase 14c's sweep; the K1/K2
 rows hold their check and times at phase 11's window B=RUN_CHUNK and,
 under "slice", at phase 5's B=W; K3/K4
 rows add device_ms, the queued device time; every row holds, under
 "cli", its check and times at phase 12c's shape, and K3/K4 rows under
-"e2e" their check and times on phase 13's refined grid) and the card's
+"e2e" and "e2e_merged" their check and times on phase 13's refined and
+merged grids) and the card's
 nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.  Where a pass's
 host time goes: mc_pass_profile.py (run by hand).
@@ -203,7 +238,7 @@ import torch
 
 D2G = 2.8e-12
 W = 256
-T_MAX = 1.0
+T_MAX = 1e-4              # yr; 1 until phase 14 was added, 1e2 before PR 8
 RTOL0, ATOL0 = 1e-4, 1e-30
 # production cells (tests/test_chem_production.py COUPLED_CELLS)
 COUPLED_CELLS = [
@@ -678,7 +713,8 @@ def run_slice(dev, n_bench=512, width=W, t_max=T_MAX):
         f"{worst:.3e} (tol 5e-2), {time.time() - t0:.1f} s")
     if not worst < 0.05:
         raise Fail("phase 6: the slice and the plain LU re-solve disagree")
-    return launches, rounds
+    # the COUPLED_CELLS' final states, for phase 14d
+    return launches, rounds, yf[N - 3:], fail[N - 3:]
 
 
 # --------------------------------------------------------------------
@@ -1195,7 +1231,8 @@ def recheck_plain(m):
 # --------------------------------------------------------------------
 # the main path: DiskModel.run on the bench disk (phase 11)
 
-RUN_T_MAX = 1e-4          # yr; production 1e6
+RUN_T_MAX = 1e-4          # yr; production 1e6 (phase 13)
+MAIN_T_MAX = 1e-5         # yr, phases 11 and 14b-c (RUN_T_MAX until PR 11)
 RUN_CHUNK = 1024          # the pool window (chem_chunk); production 256
 RUN_BUDGET_S = 360.0      # the sweep's wall budget: chunk_wall_s x chunks
 #                           x nlocal_iter (DiskModel._pool_sweep)
@@ -1245,35 +1282,26 @@ def shielding_card_vs_cpu(m):
     return {k: rel_diff(a, b) for k, (a, b) in pairs.items()}
 
 
-def check_sane(m, tag):
-    """The run's state on its final grid: at most 5% of the active cells
-    at quality 512; finite X and Tgas, abundances < 1.5 and Tgas in
-    (2, 3e4) K in clean cells, their elements within 1% of the initial
-    ones; max H2 over active cells > 0.1; Tdust in [TdustMin, TdustMax];
-    every column, shielding factor and Av_toISM on the card within 1e-12
-    of the CPU's."""
-    use = m.grid.using
-    n_act = int(use.sum())
-    q512 = int(((m.quality & 512) > 0)[use].sum())
-    say(f"{tag} chemistry: converged {int(m.converged_cells.sum())}/"
-        f"{len(m.converged_cells)} ({m.converged_cells.mean():.1%}); cells "
-        f"at quality 512: {q512} of {n_act} active (tol "
-        f"{0.05 * n_act:.0f}, 5%)")
-    if q512 > 0.05 * n_act:
-        raise Fail(f"{tag}: more than 5% of active cells at quality 512")
-    X, Tg = m.X, m.Tgas
+def check_bars(m, cells, failed, clean, tag):
+    """Phase 11's physical bars over `cells`: at most 5% of them failed
+    (failed: bool over cells); finite X and Tgas, and in the clean ones
+    (bool over cells) abundances < 1.5, Tgas in (2, 3e4) K and their
+    elements within 1% of the initial ones; max H2 over the cells > 0.1."""
+    n = len(cells)
+    n_fail = int(failed.sum())
+    X, Tg = m.X[:, cells], m.Tgas[cells]
+    say(f"{tag}: {n_fail} of {n} cells failed (tol {0.05 * n:.0f}, 5%)")
+    if n_fail > 0.05 * n:
+        raise Fail(f"{tag}: more than 5% of the cells failed")
     if not (np.isfinite(X).all() and np.isfinite(Tg).all()):
         raise Fail(f"{tag}: non-finite X or Tgas")
-    clean = use & (m.quality == 0)
     drift = element_drift(m.net, m.y0, X[:, clean].T)
-    h2 = float(X[m.net.idx["H2"], use].max())
-    td = m.Tdust[use]
+    h2 = float(X[m.net.idx["H2"]].max())
     say(f"{tag} checks over {int(clean.sum())} clean cells: max "
         f"abundance {X[:, clean].max():.4g} (tol < 1.5), Tgas in "
         f"[{Tg[clean].min():.4g}, {Tg[clean].max():.4g}] K (tol (2, 3e4)), "
-        f"max element drift {drift.max():.2e} (tol 1e-2); max H2 over "
-        f"active cells {h2:.4g} (tol > 0.1); Tdust in [{td.min():.4g}, "
-        f"{td.max():.4g}] K")
+        f"max element drift {drift.max():.2e} (tol 1e-2); max H2 over the "
+        f"cells {h2:.4g} (tol > 0.1)")
     if (X[:, clean] >= 1.5).any() \
             or not ((Tg[clean] > 2.0) & (Tg[clean] < 3e4)).all():
         raise Fail(f"{tag}: unphysical state in clean cells")
@@ -1281,9 +1309,25 @@ def check_sane(m, tag):
         raise Fail(f"{tag}: elements drift by 1% or more")
     if not h2 > 0.1:
         raise Fail(f"{tag}: no H2 above 0.1")
+
+
+def check_physical(m, tag):
+    """check_bars over the model's active cells (failed: quality 512;
+    clean: quality 0), and Tdust in [TdustMin, TdustMax]."""
+    use = m.grid.using
+    cells = np.nonzero(use)[0]
+    check_bars(m, cells, (m.quality[cells] & 512) > 0,
+               m.quality[cells] == 0, tag)
+    td = m.Tdust[use]
+    say(f"{tag}: Tdust in [{td.min():.4g}, {td.max():.4g}] K")
     if not (np.isfinite(td).all() and td.min() >= m.mc_cfg.TdustMin
             and td.max() <= m.mc_cfg.TdustMax):
         raise Fail(f"{tag}: Tdust outside [TdustMin, TdustMax]")
+
+
+def check_columns(m, tag):
+    """Every column, shielding factor and Av_toISM on the card within
+    1e-12 of the CPU's."""
     t0 = time.time()
     rel = shielding_card_vs_cpu(m)
     worst = max(r for r, _ in rel.values())
@@ -1295,6 +1339,15 @@ def check_sane(m, tag):
         raise Fail(f"{tag}: columns on the card differ from the CPU's")
 
 
+def check_sane(m, tag):
+    """The run's state on its final grid: the converged fraction, then
+    check_physical and check_columns."""
+    say(f"{tag} chemistry: converged {int(m.converged_cells.sum())}/"
+        f"{len(m.converged_cells)} ({m.converged_cells.mean():.1%})")
+    check_physical(m, tag)
+    check_columns(m, tag)
+
+
 def run_model(dev):
     """Phase 11: DiskModel(cfg).prepare() then run(n_iter=1) on the bench
     disk: the initial run_mc (K3, K4), reduce_fields, columns and
@@ -1304,7 +1357,7 @@ def run_model(dev):
     from rac2d_torch.ops import kernels
     t_ph = time.time()
     m = bench_disk(dev, n_iter=1, evolT=True, chem_stream=True,
-                   t_max=RUN_T_MAX, chem_chunk=RUN_CHUNK)
+                   t_max=MAIN_T_MAX, chem_chunk=RUN_CHUNK)
     t_prep = time.time() - t_ph
     use = m.grid.using
     n_act = int(use.sum())
@@ -1316,7 +1369,7 @@ def run_model(dev):
         f"{m.ode.neq}; path matrices nnz: star {len(m.W_star.w)}, ISM "
         f"{len(m.W_ism.w)}")
     say(f"phase 11 depth cuts: {MC_NPH} packets x {m.cfg.n_mc_passes} MC "
-        f"passes (production 4e6 x 3), t_max {RUN_T_MAX:g} yr (production "
+        f"passes (production 4e6 x 3), t_max {MAIN_T_MAX:g} yr (production "
         f"{1e6:g}), chem_chunk {W} (production 256), n_iter 1; "
         f"chunk_wall_s {m.cfg.chunk_wall_s:.3f} s, a sweep budget of "
         f"{RUN_BUDGET_S:g} s over {n_chunks} windows x "
@@ -1579,7 +1632,7 @@ def check_imaging(m, dev):
 
 # phase 12c's changes to examples/verify_model.toml: (text, replacement),
 # each found once, and the tables added at its end
-CLI_EDITS = [("t_max = 1.0", "t_max = 1e-4"),
+CLI_EDITS = [("t_max = 1.0", "t_max = 1e-5"),
              ("chem_chunk = 32", "chem_chunk = 256"),
              ("useLTE = true", "useLTE = false")]
 CLI_TABLES = """
@@ -1605,7 +1658,7 @@ def cli_toml(path):
     path.write_text(text + CLI_TABLES)
 
 
-def run_cli(outdir, toml, *extra):
+def run_cli(outdir, toml, *extra, timeout=CLI_TIMEOUT_S, tag="phase 12c"):
     """python -m rac2d_torch toml --out outdir extra..., with no --device
     (the card); (wall seconds, its log)."""
     import pathlib
@@ -1615,18 +1668,18 @@ def run_cli(outdir, toml, *extra):
     t0 = time.time()
     try:
         r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                           timeout=CLI_TIMEOUT_S)
+                           timeout=timeout)
     except subprocess.TimeoutExpired:
-        raise Fail(f"phase 12c: {' '.join(cmd[1:])} ran past "
-                   f"{CLI_TIMEOUT_S} s")
+        raise Fail(f"{tag}: {' '.join(cmd[1:])} ran past {timeout} s")
     wall = time.time() - t0
     if r.returncode != 0:
         say(r.stdout[-4000:] + r.stderr[-4000:])
-        raise Fail(f"phase 12c: {' '.join(cmd[1:])} exited {r.returncode}")
+        raise Fail(f"{tag}: {' '.join(cmd[1:])} exited {r.returncode}")
     log = (pathlib.Path(outdir) / "log.txt").read_text()
     for ln in log.splitlines():
         if any(k in ln for k in ("prepare done", "MC pass", "pool sweep",
-                                 "stage timing", "finished in", " in ")):
+                                 "stage timing", "finished in", " in ",
+                                 "(level ", "retry level")):
             say(f"  log: {ln.strip()}")
     return wall, log
 
@@ -1770,6 +1823,8 @@ E2E_SWITCHES = dict(evolT=False, do_vertical_with_Tdust=True,
                     do_refine=True, do_merge=True)
 E2E_ITERS = 2
 E2E_AIM_S = 360.0
+# phase 13's merge step: the merge_tol ladder, smallest first
+MERGE_TOLS = (1.5, 2.0, 3.0, 10.0, 100.0, 1e4)
 EQ_CELLS = 64             # cells whose equilibrium T is solved on the CPU
 
 
@@ -1973,9 +2028,409 @@ def run_e2e(dev):
     if not rel <= 1e-12:
         raise Fail("phase 13: a vertical pass changed a column's surface "
                    "density")
+    kern["merged"] = merge_step(m, dev)
     t_all = time.time() - t_ph
     say(f"phase 13 done: {t_all:.1f} s (aim <= {E2E_AIM_S:g} s)")
     return launches, kern
+
+
+def merge_step(m, dev):
+    """Phase 13's last step, merging on the card: amr_step on the refined,
+    re-balanced model at the smallest merge_tol of MERGE_TOLS that makes
+    disjoint uniform pairs (no packed pair is uniform within the default
+    1.5), with refinement off (an infinite refine_threshold, so that no
+    refine mark keeps a pair from merging), then one MC pass on the merged
+    grid (every packet counted, lanes at the step cap walked on), K3/K4
+    against their plain versions on it, and its columns, card against CPU,
+    within 1e-12.  Fails if nothing merged.  {kernel: its check and times
+    on the merged grid}."""
+    from rac2d_torch.models import amr
+    t0 = time.time()
+    av = m.fields.Av_toStar.cpu().numpy()
+    counts = {tol: len(amr.disjoint_pairs(amr.need_merge(
+        m.grid, m.grid.n0, m.Tdust, av, tol=tol))) for tol in MERGE_TOLS}
+    tol = next((t for t in MERGE_TOLS if counts[t]), None)
+    say("phase 13 merge: disjoint uniform pairs by merge_tol " + ", ".join(
+        f"{t:g}: {n}" for t, n in counts.items()))
+    if tol is None:
+        raise Fail("phase 13: no merge_tol of MERGE_TOLS merges a pair")
+    m.cfg.merge_tol, m.cfg.refine_threshold = tol, np.inf
+    n_was, log0 = m.grid.n_cells, len(m.log)
+    m.amr_step()
+    amr_ln = [ln for ln in m.log[log0:] if "AMR: refining" in ln]
+    merged = int(amr_ln[0].split()[5]) if amr_ln else 0
+    what = amr_ln[0].strip() if amr_ln else "no change"
+    say(f"phase 13 merge: amr_step at merge_tol {tol:g}: {what}; cells "
+        f"{n_was} -> {m.grid.n_cells}, {int(m.grid.using.sum())} active; "
+        f"{time.time() - t0:.2f} s")
+    if not merged:
+        raise Fail("phase 13: amr_step merged no pair")
+    m.run_mc(n_passes=1, seed=99)
+    st = m.mc_stats[-1]
+    f = st["fates"]
+    say(f"phase 13 merge: MC pass on the merged grid: {st['packets']} "
+        f"packets in {st['wall_s']:.2f} s, {st['chunks']} walk chunks, "
+        f"fates {f}")
+    if st["cells"].rmin.shape[0] != m.grid.n_cells \
+            or sum(f.values()) != st["packets"] \
+            or f["premature"] + f["active"] > 1e-3 * st["packets"]:
+        raise Fail("phase 13: the MC pass on the merged grid")
+    finish_live_lanes(m, st, "phase 13 merged")
+    lam, _, _ = m.packet_pool()
+    lanes = min(m.mc_cfg.max_batch, len(lam))
+    k3 = check_walk(m, dev, tag="phase 13 merged", nph=None, batch=lanes,
+                    warm=False, edges=False)
+    k4 = check_fold(**k3, tag="phase 13 merged")
+    check_columns(m, "phase 13 merged")
+    say(f"phase 13 merge done: {merged} pairs merged, {time.time() - t0:.1f}"
+        " s")
+    return {key: {"B": lanes, "pairs": merged, "max_abs_err": r["err"],
+                  **{k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                       "bound_ms")}}
+            for key, r in (("K3", k3), ("K4", k4))}
+
+
+# --------------------------------------------------------------------
+# the rest of the chemistry solver at full width (phase 14)
+
+# phase 14a: the command line on phase 12c's tables through the chunked
+# sweep with every gas-dust exchange mode
+CHUNKED_EDITS = [("t_max = 1e-5", "t_max = 1e-4"),
+                 ("n_iter = 1", "n_iter = 1\nchem_stream = false")]
+EXCHANGE_TABLE = """
+[heating_cooling]
+allow_gas_dust_en_exch = true
+tdust_iter_tandem = true
+dust_gas_linear_couple = true
+"""
+CLI14_TIMEOUT_S = 600
+SWEEP_CELLS = 512         # phase 14b: cells of phase 11's model
+SWEEP_W = 256             # the pool's width and the chunk (chem_chunk)
+SWEEP_CHUNK_WALL_S = 150.0  # chunk_wall_s of both sweeps
+RATE_CELLS = 64           # phase 14c: cells whose rates are held card vs CPU
+# phase 14d: the dark-cloud cell of tests/test_single_cell.py
+DARK_CLOUD = dict(Tgas=10.0, Tdust=10.0, n_gas=2e4, Av_toISM=10.0,
+                  Av_toStar=10.0, G0_UV_toISM=1.0, GrainRadius_CGS=1e-5,
+                  sigdust_ave=np.pi * 1e-10, ndust_tot=D2G * 2e4,
+                  ratioDust2HnucNum=D2G,
+                  SitesPerGrain=4 * np.pi * 1e-10 * 1e15)
+DARK_T_MAX = 1e2
+PHASE14_AIM_S = 300.0
+
+
+def check_cli_chunked(dev):
+    """Phase 14a: python -m rac2d_torch (no --device) on phase 12c's TOML
+    with chem_stream = false (one chunk of 256 lanes: 183 cells padded)
+    and [heating_cooling] with the three exchange flags, --iters 1: exit
+    0, every output file, the chunk lines and K1-K4 in its log, then the
+    saved state (its checkpoint, in a newly prepared model) held to phase
+    11's physical bars.  (wall seconds, {kernel: launches})."""
+    import pathlib
+    import re
+    import tempfile
+    from rac2d_torch import checkpoint, config
+    from rac2d_torch.models import driver
+    with tempfile.TemporaryDirectory() as tmp:
+        toml = pathlib.Path(tmp) / "model.toml"
+        cli_toml(toml)
+        text = toml.read_text()
+        for old, new in CHUNKED_EDITS:
+            if text.count(old) != 1:
+                raise Fail(f"phase 14a: '{old}' is not in the TOML once")
+            text = text.replace(old, new)
+        toml.write_text(text + EXCHANGE_TABLE)
+        out = pathlib.Path(tmp) / "run"
+        wall, log = run_cli(out, toml, "--iters", "1",
+                            timeout=CLI14_TIMEOUT_S, tag="phase 14a")
+        counts = log_launches(log)
+        ok, what, _ = check_cli_outputs(out, log, True)
+        chunks = [ln for ln in log.splitlines()
+                  if re.match(r"\s*chunk \d+ \(level \d+\)", ln)]
+        pools = [ln for ln in log.splitlines() if "pool sweep:" in ln]
+        say(f"phase 14a python -m rac2d_torch --iters 1, chunked sweep with "
+            f"the exchange modes: {wall:.1f} s, exit 0; {what}; "
+            f"{len(chunks)} chunk lines, {len(pools)} pool lines; kernel "
+            f"launches in its log: {counts}")
+        if not ok or not chunks or pools or len(counts) != 4 \
+                or min(counts.values()) <= 0:
+            raise Fail("phase 14a: the command line's outputs, chunk lines "
+                       "or launches")
+        m = driver.DiskModel(config.load_config(str(toml)), dev)
+        m.prepare()
+        checkpoint.load_state(str(out / "checkpoint.npz"), m)
+        if m.thermal.tdust_lut is None or m.cfg.chem_stream:
+            raise Fail("phase 14a: the model did not take the TOML's modes")
+        check_physical(m, "phase 14a")
+    return wall, counts
+
+
+def pick_cells(m, n, seed):
+    """n of the model's active cells (numpy seed), ordered by density as
+    chemistry_step orders a sweep's cells."""
+    act = np.nonzero(m.grid.using)[0]
+    sel = np.random.default_rng(seed).choice(act, n, replace=False)
+    return sel[np.argsort(m.grid.n0[sel], kind="stable")]
+
+
+def run_sweep(m, name, cells, touts):
+    """One sweep of `cells` on the model from its present X and Tgas:
+    {the cells' X and Tgas after it, failed mask, wall s, BDF rounds,
+    K1/K2 launches}."""
+    from rac2d_torch.ops import kernels
+    sweep = m._pool_sweep if name == "pool" else m._chunked_sweep
+    kernels.reset_launches()
+    t0 = time.time()
+    pending = sweep(cells, touts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    lc = kernels.launch_counts()
+    rounds = m.pool_result.n_rounds if name == "pool" else m.chunk_rounds
+    return dict(X=m.X[:, cells].copy(), Tgas=m.Tgas[cells].copy(),
+                failed=np.isin(cells, pending), wall=wall, rounds=rounds,
+                K1=lc["K1"], K2=lc["K2"])
+
+
+def say_sweep(tag, r, n):
+    say(f"{tag}: {n} cells, {r['rounds']} BDF rounds, {r['wall']:.2f} s, "
+        f"{1e3 * r['wall'] / max(r['rounds'], 1):.1f} ms/round, "
+        f"{int(r['failed'].sum())} failed; launches K1 {r['K1']}, K2 "
+        f"{r['K2']} ({r['K1'] / max(r['rounds'], 1):.3f} and "
+        f"{r['K2'] / max(r['rounds'], 1):.3f} a round)")
+
+
+def compare_sweeps(m):
+    """Phase 14b on phase 11's model after its run: SWEEP_CELLS active
+    cells (seed 0) solved twice from one snapshot of X and Tgas, evolT,
+    to phase 11's t_max (MAIN_T_MAX), exchange off: (i) the pool sweep at
+    width SWEEP_W, (ii) the chunked sweep in chunks of SWEEP_W.  Each held
+    to phase 11's physical bars; then the worst and median key-species
+    difference between them over the cells clean in both (no bar: a
+    measurement).  Returns
+    (the pool's result, the chunked one's, the cells, the snapshot)."""
+    from rac2d_torch.ops import bdf
+    t_ph = time.time()
+    cfg = m.cfg
+    cells = pick_cells(m, SWEEP_CELLS, 0)
+    X0, T0 = m.X.copy(), m.Tgas.copy()
+    cfg.chem_chunk, cfg.chunk_wall_s = SWEEP_W, SWEEP_CHUNK_WALL_S
+    touts = bdf.log_output_times(cfg.dt_first, cfg.t_max, cfg.ratio_tstep)
+    m.prepare_sweep_fields()
+    say(f"phase 14b setup: {len(cells)} of {int(m.grid.using.sum())} active "
+        f"cells (seed 0), {len(touts)} output times to {cfg.t_max:g} yr, "
+        f"width/chunk {SWEEP_W}, chunk_wall_s {SWEEP_CHUNK_WALL_S:g} s")
+    out = {}
+    for name in ("pool", "chunked"):
+        m.X, m.Tgas = X0.copy(), T0.copy()
+        r = out[name] = run_sweep(m, name, cells, touts)
+        say_sweep(f"phase 14b ({'i' if name == 'pool' else 'ii'}) {name} "
+                  "sweep", r, len(cells))
+        if min(r["K1"], r["K2"]) <= 0:
+            raise Fail(f"phase 14b: the {name} sweep launched no K1/K2")
+        check_bars(m, cells, r["failed"], ~r["failed"], f"phase 14b {name}")
+    a, b = out["pool"], out["chunked"]
+    clean = ~a["failed"] & ~b["failed"]
+    ki = m.net.key_species_idx
+    xa, xb = a["X"][ki][:, clean], b["X"][ki][:, clean]
+    big = np.maximum(np.abs(xa), np.abs(xb)) > 1e-12
+    rel = np.where(big, np.abs(xa - xb)
+                   / np.maximum(np.maximum(np.abs(xa), np.abs(xb)), 1e-300),
+                   0.0).max(axis=0)
+    dT = np.abs(a["Tgas"][clean] / b["Tgas"][clean] - 1)
+    say(f"phase 14b pool vs chunked over {int(clean.sum())} cells clean in "
+        f"both: key-species rel diff (entries above 1e-12) worst "
+        f"{rel.max():.3e}, median {np.median(rel):.3e}, cells above 1% "
+        f"{int((rel > 0.01).sum())}, above 5% {int((rel > 0.05).sum())}; "
+        f"Tgas rel diff worst {dT.max():.3e}, median {np.median(dT):.3e}; "
+        f"chunked/pool rounds {b['rounds'] / max(a['rounds'], 1):.2f}, "
+        f"wall {b['wall'] / a['wall']:.2f}")
+    say(f"phase 14b done: {time.time() - t_ph:.1f} s")
+    return a, b, cells, (X0, T0)
+
+
+def kernel_launches(fn):
+    """CUDA kernel launches of one fn() call, counted by torch.profiler
+    (None if the profiler records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.key.startswith("cudaLaunchKernel"))
+    return n or None
+
+
+def exchange_window(m, dev, pool, cells, snap):
+    """Phase 14c: SWEEP_W of phase 14b's cells (seed 1) in one window of
+    the pool sweep, from the same snapshot, with the model's
+    ThermalBalance rebuilt with the Tdust LUT and all three exchange modes
+    on, as prepare does: ms/round and K1/K2 launches a round against
+    14b (i), and the CUDA kernels one RHS and one Jacobian evaluation
+    launch on that window with the modes off and on; phase 11's physical
+    bars; every HeatingCoolingRates field of RATE_CELLS of the cells, card
+    against CPU from the same inputs, within 1e-9 relative (absolute floor
+    1e-40).  Returns the K1/K2 launches."""
+    from rac2d_torch.ops import bdf, odesys, rates, thermal
+    from rac2d_torch.utils.tree import tree_map
+    t_ph = time.time()
+    cfg = m.cfg
+    sub = np.random.default_rng(1).choice(len(cells), SWEEP_W,
+                                          replace=False)
+    win = cells[np.sort(sub)]
+    X0, T0 = snap
+    touts = bdf.log_output_times(cfg.dt_first, cfg.t_max, cfg.ratio_tstep)
+    off = m.ode
+    cfg.hc = thermal.HcConfig(allow_gas_dust_en_exch=True,
+                              tdust_iter_tandem=True,
+                              dust_gas_linear_couple=True)
+    lut = (m.tab.lut_Tds, m.tab.lut_vals)
+    m.thermal = thermal.ThermalBalance(m.net, cfg.hc, device=dev,
+                                       tdust_lut=lut)
+    m.ode = odesys.ChemicalODE(m.net, thermal=m.thermal, device=dev)
+    m.X, m.Tgas = X0.copy(), T0.copy()
+    r = run_sweep(m, "pool", win, touts)
+    say_sweep("phase 14c pool sweep with the exchange modes", r, len(win))
+    say(f"phase 14c against 14b (i), the same width: ms/round "
+        f"{1e3 * r['wall'] / r['rounds']:.1f} vs "
+        f"{1e3 * pool['wall'] / pool['rounds']:.1f} "
+        f"({r['wall'] / r['rounds'] / (pool['wall'] / pool['rounds']):.2f}"
+        f"x); K1+K2 launches a round "
+        f"{(r['K1'] + r['K2']) / r['rounds']:.3f} vs "
+        f"{(pool['K1'] + pool['K2']) / pool['rounds']:.3f}")
+    if min(r["K1"], r["K2"]) <= 0:
+        raise Fail("phase 14c: the sweep launched no K1/K2")
+    # the kernels an RHS and a Jacobian evaluation launch, modes off / on
+    env, tenv = m.assemble_envs(win)
+    y = m._t(np.concatenate([m.X[:, win].T, m.Tgas[win][:, None]], axis=1))
+    args = (env, tenv, None)
+    counts = {}
+    for name, ode in (("off", off), ("on", m.ode)):
+        f_b, jac_b, _ = ode._batch_fns(True)
+        try:
+            counts[name] = (kernel_launches(lambda: f_b(y, args)),
+                            kernel_launches(lambda: jac_b(y, args)))
+        except Exception as e:          # noqa: BLE001 (reported, no check)
+            counts[name] = (f"not measured ({type(e).__name__})",) * 2
+    say(f"phase 14c CUDA kernels launched by one RHS / one Jacobian "
+        f"evaluation at {len(win)} lanes (torch.profiler): modes off "
+        f"{counts['off'][0]} / {counts['off'][1]}, on {counts['on'][0]} / "
+        f"{counts['on'][1]}")
+    check_bars(m, win, r["failed"], ~r["failed"], "phase 14c")
+    # every rate of RATE_CELLS cells, card against CPU, from the same
+    # inputs (the state after the sweep)
+    t0 = time.time()
+    few = win[:RATE_CELLS]
+    env, tenv = m.assemble_envs(few)
+    y = m._t(np.concatenate([m.X[:, few].T, m.Tgas[few][:, None]], axis=1))
+    nS = m.net.n_species
+    T = y[:, nS]
+    r_card = m.thermal.rates(y, T, env, tenv,
+                             rates.compute_rates(m.ode.tab, env, T))
+
+    def cpu(a):
+        return a.cpu()
+    th_cpu = thermal.ThermalBalance(m.net, cfg.hc, device="cpu",
+                                    tdust_lut=lut)
+    env_c, tenv_c = tree_map(cpu, env), tree_map(cpu, tenv)
+    tab_c = rates.build_rate_tables(m.net, "cpu")
+    r_cpu = th_cpu.rates(y.cpu(), T.cpu(), env_c, tenv_c,
+                         rates.compute_rates(tab_c, env_c, T.cpu()))
+    worst = {}
+    for name in r_card._fields:
+        a = getattr(r_card, name).cpu()
+        b = getattr(r_cpu, name)
+        worst[name] = float(((a - b).abs() / (1e-9 * b.abs() + 1e-40)).max())
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    say(f"phase 14c rates of {len(few)} cells with the exchange modes, card "
+        f"vs CPU: max |d| / (1e-9 |cpu| + 1e-40) over {len(worst)} fields "
+        f"{max(worst.values()):.3e} (tol 1; worst field "
+        f"{max(worst, key=worst.get)}); {time.time() - t0:.1f} s")
+    if bad:
+        raise Fail(f"phase 14c: rates on the card differ from the CPU's: "
+                   f"{bad}")
+    m.ode, m.thermal, cfg.hc = off, off.thermal, thermal.HcConfig()
+    say(f"phase 14c done: {time.time() - t_ph:.1f} s")
+    return r["K1"], r["K2"]
+
+
+def other_drivers(dev, phase5_states):
+    """Phase 14d: ChemicalODE.solve (the single-system solver) on the
+    dark-cloud cell of tests/test_single_cell.py to DARK_T_MAX yr, on the
+    card and on the CPU (both complete, key species within 1% above
+    1e-12: cuSOLVER's f32 factor is not LAPACK's); then
+    solve_batched(continuous=True, retry_tols=...) on phase 5's three
+    COUPLED_CELLS to T_MAX, within phase 6's 5% of phase 5's final states
+    of the same cells.  Returns the K1/K2 launches of the second."""
+    from rac2d_torch import defaults
+    from rac2d_torch.io import umist
+    from rac2d_torch.ops import bdf, kernels, odesys
+    from rac2d_torch.ops.rates import CellEnv
+    from rac2d_torch.ops.thermal import ThermalBalance
+    t_ph = time.time()
+    net = umist.load_network(defaults.NETWORK,
+                             enthalpy_path=defaults.ENTHALPIES)
+    y0 = umist.load_initial_abundances(net, defaults.INIT_ABUNDANCES)
+    ki = net.key_species_idx
+    touts = bdf.log_output_times(1e-8, DARK_T_MAX, 1.3)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        ode = odesys.ChemicalODE(net, device=d)
+        rtol, atol = odesys.tolerance_ladder(net, 1, RTOL0, ATOL0, D2G, d)
+        t0 = time.time()
+        r = ode.solve(CellEnv.default(d, **DARK_CLOUD), y0, 10.0, touts,
+                      rtol, atol, first_step=1e-8)
+        res.append(r)
+        say(f"phase 14d ChemicalODE.solve, dark cloud to {DARK_T_MAX:g} yr "
+            f"on the {d.type}: {time.time() - t0:.2f} s, fail "
+            f"{bool(r.fail)}, t_final {float(r.t_final):g}, "
+            f"{int(r.n_steps)} steps, {int(r.n_lu)} LUs, "
+            f"{int(r.n_jeval)} Jacobians")
+    rc, rh = res
+    a, b = rc.ys[-1].cpu().numpy()[ki], rh.ys[-1].numpy()[ki]
+    big = np.abs(b) > 1e-12
+    rel = float((np.abs(a - b)[big] / np.abs(b[big])).max())
+    say(f"phase 14d dark cloud card vs CPU: key species rel diff {rel:.3e} "
+        f"(tol 1e-2, entries above 1e-12)")
+    if bool(rc.fail) or bool(rh.fail) \
+            or float(rc.t_final) < DARK_T_MAX * (1 - 1e-12) or not rel < 0.01:
+        raise Fail("phase 14d: the single-cell solve")
+    # the continuous driver with the ladder on the COUPLED_CELLS
+    ode = odesys.ChemicalODE(net, thermal=ThermalBalance(net, device=dev),
+                             device=dev)
+    envs, tenvs, T0 = coupled_cells(dev)
+    rtol, atol = odesys.tolerance_ladder(net, 1, RTOL0, ATOL0, D2G, dev)
+    touts = bdf.log_output_times(1e-8, T_MAX, 1.5)
+    kernels.reset_launches()
+    t0 = time.time()
+    r = ode.solve_batched(
+        envs, torch.as_tensor(np.tile(y0, (3, 1)), device=dev),
+        torch.as_tensor(T0, device=dev), touts, rtol, atol,
+        first_step=1e-8, evolT=True, tenvs=tenvs,
+        max_steps_per_interval=500, continuous=True,
+        retry_tols=ode.retry_ladder(3, RTOL0, ATOL0, D2G))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    lc = kernels.launch_counts()
+    yf, fail5 = phase5_states
+    yc = r.ys[:, -1].numpy()
+    worst = 0.0
+    for i in range(3):
+        big = np.abs(yf[i, ki]) > 1e-12
+        worst = max(worst, float((np.abs(yc[i, ki] - yf[i, ki])[big]
+                                  / np.abs(yf[i, ki])[big]).max()))
+    say(f"phase 14d solve_batched(continuous=True, retry_tols) on the 3 "
+        f"COUPLED_CELLS to {T_MAX:g} yr: {wall:.1f} s, {r.n_rounds} BDF "
+        f"rounds, failed {r.fail.numpy().tolist()}, ladder levels "
+        f"{r.retry_level.numpy().tolist()}, launches K1 {lc['K1']}, K2 "
+        f"{lc['K2']}; key species vs phase 5's final states: worst rel diff "
+        f"{worst:.3e} (tol 5e-2)")
+    if bool(r.fail.any()) or fail5.any() or not worst < 0.05 \
+            or min(lc["K1"], lc["K2"]) <= 0:
+        raise Fail("phase 14d: the continuous driver")
+    say(f"phase 14d done: {time.time() - t_ph:.1f} s")
+    return lc["K1"], lc["K2"]
 
 
 def main():
@@ -2015,7 +2470,7 @@ def main():
         tm_run = time_kernels(**chk_run)
         del chk_run["A"], chk_run["b"], chk_run["fac"], chk_run["ref"]
         torch.cuda.empty_cache()
-        launches, _ = run_slice(dev)
+        launches, _, *phase5_states = run_slice(dev)
         for name, key, replaces, err, nl in (
                 ("blocklu_factor", "K1", K1_REPLACES, "err_fac",
                  launches[0]),
@@ -2045,7 +2500,6 @@ def main():
         kernels.reset_launches()
         times = check_imaging(m, dev)
         img_launches = kernels.launch_counts()
-        del m
         torch.cuda.empty_cache()
         walls, cli_launches, cli_kern = check_cli(dev)
         t12 = time.time() - t12
@@ -2058,10 +2512,34 @@ def main():
         torch.cuda.empty_cache()
         # ---- 13. the end-to-end configuration ----
         e2e_launches, e2e_kern = run_e2e(dev)
-        for row, key in zip(rows, ("K1", "K2")):
+        torch.cuda.empty_cache()
+        # ---- 14. the rest of the chemistry solver ----
+        t14 = time.time()
+        walls14 = {}
+        t0 = time.time()
+        _, cli14_launches = check_cli_chunked(dev)
+        walls14["14a"] = time.time() - t0
+        t0 = time.time()
+        pool, chunked, cells, snap = compare_sweeps(m)
+        walls14["14b"] = time.time() - t0
+        t0 = time.time()
+        exch_launches = exchange_window(m, dev, pool, cells, snap)
+        walls14["14c"] = time.time() - t0
+        del m
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        other_drivers(dev, phase5_states)
+        walls14["14d"] = time.time() - t0
+        say(f"phase 14 done: {time.time() - t14:.1f} s (aim <= "
+            f"{PHASE14_AIM_S:g} s); " + ", ".join(
+                f"{k} {v:.1f} s" for k, v in walls14.items()))
+        for row, key, nx in zip(rows, ("K1", "K2"), exch_launches):
             row["launches"] = run_launches[key]
             row["launches_cli"] = cli_launches[key]
             row["launches_e2e"] = e2e_launches[key]
+            row["launches_chunked"] = chunked[key]
+            row["launches_exchange"] = nx
+            row["launches_cli_chunked"] = cli14_launches[key]
             row["cli"] = cli_kern[key]
         res = {"mc_walk": (k3, mc_launches[0], run_launches["K3"],
                            cli_launches["K3"], cli_kern["K3"], "K3"),
@@ -2074,6 +2552,7 @@ def main():
                          "launches": n_run, "launches_slice": n,
                          "launches_cli": n_cli,
                          "launches_e2e": e2e_launches[key],
+                         "launches_cli_chunked": cli14_launches[key],
                          "max_abs_err": r["err"],
                          "ms": r["ms"], "device_ms": r["device_ms"],
                          "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
@@ -2081,7 +2560,8 @@ def main():
                          "library_ms": None,
                          **({"bound_all_fields_ms": r["bound_all_fields_ms"]}
                             if "bound_all_fields_ms" in r else {}),
-                         "cli": cli, "e2e": e2e_kern[key]})
+                         "cli": cli, "e2e": e2e_kern[key],
+                         "e2e_merged": e2e_kern["merged"][key]})
     except Fail as e:
         say(f"FAIL {e}")
         return 1

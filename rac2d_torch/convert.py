@@ -62,10 +62,13 @@ def thermal_env(tenv, device="cuda") -> ThermalEnv:
 
 
 def thermal_balance(tb, device="cuda") -> ThermalBalance:
-    """A ThermalBalance with the JAX object's configuration and its
-    lookup tables and reaction-heat arrays (copied, not reloaded)."""
+    """A ThermalBalance with the JAX object's configuration, its Tdust
+    LUT, lookup tables and reaction-heat arrays (copied, not reloaded)."""
     cfg = HcConfig(**dataclasses.asdict(tb.cfg))
-    out = ThermalBalance(chem_net(tb.net), cfg, device=device)
+    lut = None if tb.tdust_lut is None \
+        else tuple(np.array(a) for a in tb.tdust_lut)
+    out = ThermalBalance(chem_net(tb.net), cfg, device=device,
+                         tdust_lut=lut)
 
     def t(v):
         return _tensor(v, device)

@@ -12,16 +12,17 @@ matrices), the per-cell state, ``run_mc`` on a single device (the streamed
 pass, whose walk and terminal fold are kernels K3 and K4 on a CUDA
 device), ``prepare_sweep_fields`` and ``assemble_envs`` (columns,
 self-shielding and the per-cell environments, float64 on the model's
-device), the pool chemistry sweep (whose Newton factor and solve are
-kernels K1 and K2) on both branches, ``evolT=True`` (the coupled
-chemistry and temperature) and ``evolT=False`` (fixed-T chemistry, then
-the equilibrium temperature by bisection), ``chemistry_step`` with its
+device), both chemistry sweeps (whose Newton factor and solve are kernels
+K1 and K2): the pool sweep (``chem_stream=True``) and the chunked sweep
+(``chem_stream=False``), each on both branches, ``evolT=True`` (the
+coupled chemistry and temperature) and ``evolT=False`` (fixed-T
+chemistry, then the equilibrium temperature by bisection), with the
+gas-dust energy-exchange modes of ``cfg.hc``; ``chemistry_step`` with its
 convergence bookkeeping, the hydrostatic vertical structure
 (``vertical_bootstrap``, ``vertical_adjust``), AMR refine/merge
 (``amr_step``, ``adopt_grid``), ``run`` with its per-iteration outputs
-(``save_dir``), and ``sed``.  Not ported yet, each raising
-``NotImplementedError`` when asked for: ``chem_stream=False`` (the chunked
-sweep), the gas-dust energy-exchange modes; the sharded multi-device pass.
+(``save_dir``), and ``sed``.  Not ported yet, raising
+``NotImplementedError`` when asked for: the sharded multi-device pass.
 """
 
 from __future__ import annotations
@@ -227,6 +228,14 @@ class DiskModel:
         self.mc_cfg = cfg.mc or optics.McConfig(nph=cfg.nph_per_pass)
         self.tab = optics.build_tables(self.mixtures, self.mc_cfg,
                                        h2o_lam, h2o_sig)
+        if cfg.hc.tdust_iter_tandem or cfg.hc.dust_gas_linear_couple:
+            # the gas-dust exchange modes need the Tdust(energy) LUT, which
+            # exists once the optics tables are built
+            self.thermal = thermal.ThermalBalance(
+                self.net, config=cfg.hc, device=dev,
+                tdust_lut=(self.tab.lut_Tds, self.tab.lut_vals))
+            self.ode = odesys.ChemicalODE(self.net, thermal=self.thermal,
+                                          device=dev)
 
         self.say("preparing star...")
         if cfg.star_spectrum_file:
@@ -708,20 +717,14 @@ class DiskModel:
         return self._visser
 
     # ------------------------------------------------------------------
-    def _refuse_unported(self):
-        """Raise NotImplementedError, before any work, for an option of
-        the chemistry sweep whose code path is not ported yet."""
-        cfg = self.cfg
-        hc = cfg.hc
-        asks = [("chem_stream=False (chunked sweep)", not cfg.chem_stream,
-                 "the chunked sweep"),
-                ("hc: gas-dust energy exchange",
-                 hc.allow_gas_dust_en_exch or hc.tdust_iter_tandem
-                 or hc.dust_gas_linear_couple, "the exchange modes")]
-        for name, asked, item in asks:
-            if asked:
-                raise NotImplementedError(
-                    f"{name}: {item} is not ported yet")
+    def _sweep_d2g(self, act):
+        """The dust-to-H ratio of a sweep's tolerance ladder (its grain
+        atols): the mean over the cells the sweep solves.  In the port
+        only: the JAX package averages over every cell, in both sweeps,
+        and a hydrostatic pass that empties a cell of gas (n0 -> 0, the
+        dust kept) makes that mean ~1e161, so the grain species lose all
+        error control."""
+        return float(self.d2h[act].mean())
 
     def _pool_sweep(self, act, touts):
         """Stream all active cells through one constant-width solver
@@ -738,12 +741,7 @@ class DiskModel:
             + (time.time() - t_env0)
         y0b = self._t(np.ascontiguousarray(self.X[:, act].T))
         T0b = self._t(self.Tgas[act])
-        # the dust-to-H ratio of the tolerance ladder (grain atols): the
-        # mean over the cells solved.  In the port only: the JAX package
-        # averages over every cell, and a hydrostatic pass that empties a
-        # cell of gas (n0 -> 0, the dust kept) makes that mean ~1e161, so
-        # the grain species lose all error control
-        d2g = float(self.d2h[act].mean())
+        d2g = self._sweep_d2g(act)
         rtol, atol = odesys.tolerance_ladder(
             self.net, 1, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
         retry = self.ode.retry_ladder(
@@ -806,13 +804,91 @@ class DiskModel:
         self.say(f"    equilibrium T: {n_brk} cells bracketed, "
                  f"{len(act) - n_brk} not, {time.time() - t0:.1f}s")
 
+    def _solve_chunk(self, idx, n_real, level, touts, d2g):
+        """Solve one chunk of cells (idx, padded to the chunk width by
+        repeating its last cell; the first n_real are real) at tolerance
+        level `level` through the record driver
+        (ChemicalODE.solve_batched(host_loop=True), a barrier at every
+        output time, chunk_wall_s its wall budget), and write the solved
+        cells back into (X, Tgas); with evolT=False their equilibrium T
+        follows.  Returns (ok over the n_real cells, their accepted
+        steps, the BDF rounds run)."""
+        cfg = self.cfg
+        nS = self.net.n_species
+        t_env0 = time.time()
+        env, tenv = self.assemble_envs(idx)
+        self._t_envs = getattr(self, "_t_envs", 0.0) \
+            + (time.time() - t_env0)
+        rtol, atol = odesys.tolerance_ladder(
+            self.net, level, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
+        res = self.ode.solve_batched(
+            env, self._t(np.ascontiguousarray(self.X[:, idx].T)),
+            self._t(self.Tgas[idx]), touts, rtol, atol,
+            first_step=cfg.dt_first, evolT=cfg.evolT, tenvs=tenv,
+            max_steps_per_interval=cfg.max_steps_per_interval,
+            host_loop=True, max_wall_s=cfg.chunk_wall_s or None,
+            progress_cb=lambda i, s: (
+                self.say(f"      ...interval {i}")
+                if i and i % 16 == 0 else None))
+        ok = ~res.fail[:n_real].cpu().numpy()
+        cells = idx[:n_real]
+        yf = res.ys[:n_real, -1, :].cpu().numpy()
+        self.X[:, cells[ok]] = yf[ok, :nS].T
+        if cfg.evolT:
+            self.Tgas[cells[ok]] = yf[ok, nS]
+        else:
+            self._equilibrium_T(cells, ok, n_real)
+        return ok, int(res.n_steps[:n_real].sum()), res.n_rounds
+
+    def _chunked_sweep(self, act, touts):
+        """The chunked sweep (chem_stream=False): the active cells in
+        chunks of chem_chunk (the last padded to full width by repeating
+        its last cell), each solved alone (_solve_chunk); at each
+        tolerance level of 1..nlocal_iter the cells still failing are
+        re-solved, in whole chunks of them, at the next level.  d2g is
+        taken over act, as in the pool sweep (_sweep_d2g).  Returns the
+        cells that failed every level."""
+        cfg = self.cfg
+        d2g = self._sweep_d2g(act)
+        W = cfg.chem_chunk
+        pending = act
+        n_done = 0
+        self.chunk_rounds = 0
+        for level in range(1, cfg.nlocal_iter + 1):
+            if len(pending) == 0:
+                break
+            if level > 1:
+                self.say(f"  retry level {level}: "
+                         f"{len(pending)} cells at relaxed tolerances")
+            failed = []
+            for lo in range(0, len(pending), W):
+                idx = pending[lo:lo + W]
+                t_chunk = time.time()
+                n_real = len(idx)
+                if n_real < W:
+                    idx = np.concatenate([idx,
+                                          np.repeat(idx[-1:], W - n_real)])
+                ok, steps, rounds = self._solve_chunk(idx, n_real, level,
+                                                      touts, d2g)
+                self.chunk_rounds += rounds
+                n_done += int(ok.sum())
+                failed.append(idx[:n_real][~ok])
+                self.say(f"    chunk {lo // W} (level {level}): {n_real} "
+                         f"cells, {steps} steps, {int((~ok).sum())} failed, "
+                         f"{rounds} BDF rounds, "
+                         f"{time.time() - t_chunk:.1f}s; "
+                         f"done {n_done}/{len(act)}")
+            pending = np.concatenate(failed)
+        return pending
+
     # ------------------------------------------------------------------
     def chemistry_step(self, iiter=1):
         """One full-disk chemistry(+T) sweep over the active cells.
 
         Cells are ordered by density so that neighbouring lanes of the
-        window are similarly stiff.  Returns the converged fraction."""
-        self._refuse_unported()
+        window are similarly stiff.  The cells go through the pool sweep,
+        or with chem_stream=False through the chunked sweep.  Returns the
+        converged fraction."""
         cfg = self.cfg
         act = np.nonzero(self.grid.using)[0]
         act = act[np.argsort(self.grid.n0[act])]
@@ -831,8 +907,12 @@ class DiskModel:
                     t_evol=cfg.t_max)
         abun_prev = self.X.copy()
         self.prepare_sweep_fields()
-        pending = self._pool_sweep(act, touts) if len(act) \
-            else np.array([], dtype=np.int64)
+        if not len(act):
+            pending = np.array([], dtype=np.int64)
+        elif cfg.chem_stream:
+            pending = self._pool_sweep(act, touts)
+        else:
+            pending = self._chunked_sweep(act, touts)
         self.quality[pending] += 512
         if len(pending):
             self.say(f"  {len(pending)} cells failed all "
@@ -867,7 +947,6 @@ class DiskModel:
         convergence check (reference iter_NNNN.dat, disk.f90:2745-3074)."""
         cfg = self.cfg
         n_iter = cfg.n_iter if n_iter is None else n_iter
-        self._refuse_unported()
         if cfg.do_vertical_with_Tdust:
             self.vertical_bootstrap()
         self.say("initial Monte Carlo (Tdust bootstrap)...")

@@ -21,9 +21,21 @@ kernels K1/K2 on a CUDA tensor (``ops/kernels.py``), their plain versions
 asked for.  One f64 iterative-refinement step per solve (``n_refine``)
 recovers f64-level Newton corrections.
 
-Ported here: the step helpers, the batch state, ``_bfac``/``_bsolve``,
-``_batch_init``, the round body, the per-lane continuous-recording
-advance loop, the tolerance-ladder rollback and the pool-refill driver.
+Ported here: the step helpers, the single-system solver (``_newton``,
+``_step``, ``bdf_solve``: one cell on [NEQ] tensors with its own refresh
+policy and the mixed-precision pivoted factorization of ``ops/linalg.py``),
+the batch state, ``_bfac``/``_bsolve``, ``_batch_init``, the round body,
+the record drivers (``bdf_solve_batch``, ``bdf_solve_batch_host``: every
+lane paused at each output time until the slowest arrives), the per-lane
+continuous-recording advance loop with its driver
+(``bdf_solve_batch_cont``, with the tolerance ladder and the straggler
+compaction), the tolerance-ladder rollback and the pool-refill driver.
+
+Departures from the JAX package: the record driver has no first-interval
+wall-clock exemption (it exists there for a freshly jitted record's
+compile; torch compiles nothing), and the debug escape hatches
+``RAC2D_BDF_NOFAIL`` and ``RAC2D_BDF_TRACE`` (for TPU backends without
+host callbacks) are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import numpy as np
 import torch
 
 from . import blocklu, kernels
+from .linalg import MPFactor, mp_factor, mp_solve
 from ..utils.tree import tree_map
 
 F64 = torch.float64
@@ -45,9 +58,10 @@ MAX_ORDER = 5
 NEWTON_MAXITER = 4
 MIN_FACTOR = 0.2
 MAX_FACTOR = 10.0
-# keep the factorization while c = h/alpha(order) is within this relative
-# distance of the factorized value (DVODE's gamma test, loosened for the
-# batch: any lane's drift refactors the whole batch)
+# keep the Newton factorization while c = h/alpha(order) is within this
+# relative distance of the factorized value (DVODE's gamma test)
+DELTA_C_REFACTOR = 0.3
+# batch path: looser (any lane's drift refactors the whole batch)
 DELTA_C_BATCH = 0.6
 # suppress step-size increases below this factor (VODE's eta hysteresis)
 # so routine adaptations do not churn the factorization
@@ -199,6 +213,221 @@ def log_output_times(t_start, t_end, ratio=1.1, n_max=None):
     ts.append(t_end)
     return np.array(ts)
 
+
+# ==========================================================================
+# Single-system solver
+# ==========================================================================
+
+class BDFState(NamedTuple):
+    """One system's solver state: host scalars for the step control, the
+    difference array, Jacobian and factorization on the system's device."""
+    t: float
+    h: float
+    order: int
+    D: torch.Tensor             # [_NROWS, NEQ]
+    n_equal_steps: int
+    J: torch.Tensor             # [NEQ, NEQ]
+    fac: MPFactor | None        # mixed-precision factorization of I - c J
+    c_lu: float                 # c value baked into the factorization
+    need_lu: bool
+    jac_fresh: bool
+    fail: bool
+    n_steps: int                # accepted steps
+    n_feval: int
+    n_jeval: int
+    n_lu: int
+
+
+def _one(fn, D, order, *a):
+    """A batched difference-array helper on one system's D [_NROWS, NEQ]."""
+    o = torch.tensor([order], device=D.device)
+    return fn(D[None], o, *a)[0]
+
+
+def _rms1(x):
+    return float(_rms_norm(x))
+
+
+def _newton(f, fac: MPFactor, c, psi, y_pred, scale, tol):
+    """Damped simplified-Newton solve of the BDF algebraic system: d such
+    that d = c * f(y_pred + d) - psi, with the frozen factorization of
+    I - c J.  Returns (converged, iterations, y, d, f evaluations)."""
+    y = y_pred
+    d = torch.zeros_like(y_pred)
+    dy_norm_old = 0.0
+    converged = diverged = False
+    k = 0
+    while k < NEWTON_MAXITER and not converged and not diverged:
+        rhs = c * f(y) - psi - d
+        dy = mp_solve(fac, rhs)
+        dy_norm = _rms1(dy / scale)
+        with_old = dy_norm_old > 0.0
+        rate = dy_norm / max(dy_norm_old, 1e-300) if with_old else 0.0
+        bad = with_old and (
+            rate >= 1.0
+            or rate ** (NEWTON_MAXITER - k) / max(1.0 - rate, 1e-10)
+            * dy_norm > tol)
+        diverged = bad or not math.isfinite(dy_norm)
+        if not diverged:
+            y = y + dy
+            d = d + dy
+        converged = not diverged and (
+            dy_norm == 0.0
+            or (with_old and rate / max(1.0 - rate, 1e-10) * dy_norm < tol))
+        dy_norm_old = dy_norm
+        k += 1
+    return converged, k, y, d, k
+
+
+def _step(f, jac, state: BDFState, t_bound, rtol, atol, newton_tol):
+    """Attempt steps until one is accepted (or the system fails), then
+    update the difference array and adapt the order and step size."""
+    _, alpha, err_const = _c(state.D.device)
+    NEQ = state.D.shape[1]
+    eye = torch.eye(NEQ, dtype=F64, device=state.D.device)
+    order = state.order
+    accepted = False
+    error_norm, safety = math.inf, 0.9
+    d = None
+    while not accepted and not state.fail:
+        # clamp the step to the integration bound (reference ITASK=4)
+        h = state.h
+        t_new = state.t + h
+        D = state.D
+        if t_new > t_bound:
+            factor = (t_bound - state.t) / h
+            D = _one(_change_D, D, order, factor)
+            h = h * factor
+            t_new = t_bound
+        hmin = 10.0 * _EPS * max(abs(state.t), abs(t_new))
+        too_small = h < hmin
+
+        y_pred = _one(_predict, D, order)
+        scale = atol + rtol * torch.abs(y_pred)
+        psi = _one(_psi, D, order)
+        c = h / float(_ALPHA_NP[order])
+
+        fac, c_lu, n_lu = state.fac, state.c_lu, state.n_lu
+        if state.need_lu or math.isnan(c_lu) \
+                or abs(c / c_lu - 1.0) > DELTA_C_REFACTOR:
+            fac = mp_factor(eye - c * state.J, col_scale=scale)
+            c_lu, n_lu = c, n_lu + 1
+
+        converged, n_iter, y_new, d, nfe = _newton(
+            f, fac, c, psi, y_pred, scale, newton_tol)
+        safety = 0.9 * (2.0 * NEWTON_MAXITER + 1.0) / (
+            2.0 * NEWTON_MAXITER + n_iter)
+
+        # Newton failed with a stale Jacobian: refresh it, retry at the
+        # same h; with a fresh one: halve the step
+        refresh_jac = not converged and not state.jac_fresh
+        J = jac(y_pred) if refresh_jac else state.J
+        halve = not converged and state.jac_fresh
+        error_norm = _rms1(err_const[order] * d
+                           / (atol + rtol * torch.abs(y_new))) \
+            if converged else math.inf
+        reject = converged and error_norm > 1.0
+        accept = converged and not reject
+        if halve or reject:
+            factor = 0.5 if halve else float(_rej_factor(
+                torch.tensor(safety, dtype=F64),
+                torch.tensor(error_norm, dtype=F64), order))
+            D = _one(_change_D, D, order, factor)
+            h = h * factor
+        state = BDFState(
+            t=t_new if accept else state.t, h=h, order=order, D=D,
+            n_equal_steps=0 if (halve or reject) else state.n_equal_steps,
+            J=J, fac=fac, c_lu=c_lu, need_lu=refresh_jac,
+            jac_fresh=refresh_jac or state.jac_fresh,
+            fail=state.fail or (too_small and not accept)
+            or not math.isfinite(h),
+            n_steps=state.n_steps + accept, n_feval=state.n_feval + nfe,
+            n_jeval=state.n_jeval + refresh_jac, n_lu=n_lu)
+        accepted = accept
+
+    if not accepted:
+        return state
+    # --- post-accept: difference update + order/step-size adaptation ---
+    D = _one(_update_D, state.D, order, d[None])
+    n_eq = state.n_equal_steps + 1
+    h = state.h
+    if n_eq >= order + 1:
+        scale = atol + rtol * torch.abs(D[0])
+        em = _rms1(err_const[order - 1] * D[order] / scale) \
+            if order > 1 else math.inf
+        ep = _rms1(err_const[order + 1] * D[order + 2] / scale) \
+            if order < MAX_ORDER else math.inf
+        factors = _adapt_factors(
+            torch.tensor([em, error_norm, ep], dtype=F64),
+            -1.0 / (order + torch.arange(3, dtype=F64)))
+        best = int(torch.argmax(factors))
+        order = min(max(order + best - 1, 1), MAX_ORDER)
+        factor = max(min(MAX_FACTOR, safety * float(factors[best])),
+                     MIN_FACTOR)
+        D = _one(_change_D, D, order, factor)
+        h = h * factor
+        n_eq = 0
+    return state._replace(D=D, order=order, h=h, n_equal_steps=n_eq,
+                          jac_fresh=False)
+
+
+def bdf_solve(f: Callable, jac: Callable, y0, t0, touts, rtol, atol,
+              first_step, max_steps_per_interval: int = 2000,
+              sanity_fn: Callable | None = None) -> BDFResult:
+    """Integrate y' = f(y) from t0, recording at `touts` (one system).
+
+    f(y[NEQ]) -> ydot[NEQ], jac(y) -> J[NEQ, NEQ] are autonomous; rtol and
+    atol are [NEQ] tensors on y0's device; sanity_fn(y) -> bool marks an
+    insane state (the system fails).  The loops run on the host.  A system
+    that spends max_steps_per_interval steps without reaching a record
+    time fails (reference "Premature finish", chemistry.f90:480-491).
+    Returns a BDFResult without a batch axis: ts [n_out], ys [n_out, NEQ]
+    on y0's device, the rest 0-d."""
+    y0 = y0.to(F64)
+    dev = y0.device
+    touts = [float(t) for t in np.asarray(touts, dtype=np.float64)]
+    D = torch.zeros(_NROWS, y0.shape[0], dtype=F64, device=dev)
+    D[0] = y0
+    D[1] = first_step * f(y0)
+    state = BDFState(
+        t=float(t0), h=float(first_step), order=1, D=D, n_equal_steps=0,
+        J=jac(y0), fac=None, c_lu=math.nan, need_lu=True, jac_fresh=True,
+        fail=False, n_steps=0, n_feval=1, n_jeval=1, n_lu=0)
+    newton_tol = _newton_tol_of(rtol)
+    t_bound = touts[-1]
+    ts, ys = [], []
+    for tout in touts:
+        n = 0
+        while state.t < tout and not state.fail \
+                and n < max_steps_per_interval:
+            state = _step(f, jac, state, t_bound, rtol, atol, newton_tol)
+            if sanity_fn is not None and sanity_fn(state.D[0]):
+                state = state._replace(fail=True)
+            n += 1
+        if state.t < tout:
+            state = state._replace(fail=True)
+        t_rec = min(tout, state.t)
+        ts.append(t_rec)
+        o = torch.tensor([state.order], device=dev)
+        ys.append(interpolate(state.D[None], o,
+                              torch.tensor([state.t], dtype=F64, device=dev),
+                              torch.tensor([state.h], dtype=F64, device=dev),
+                              torch.tensor([t_rec], dtype=F64,
+                                           device=dev))[0])
+
+    def t(v, dtype=None):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    return BDFResult(ts=t(ts, F64), ys=torch.stack(ys),
+                     t_final=t(state.t, F64),
+                     fail=t(state.fail), n_steps=t(state.n_steps),
+                     n_feval=t(state.n_feval), n_jeval=t(state.n_jeval),
+                     n_lu=t(state.n_lu))
+
+
+# ==========================================================================
+# Batch-native solver
+# ==========================================================================
 
 class BDFBatchState(NamedTuple):
     t: torch.Tensor          # [B]
@@ -447,6 +676,121 @@ def _make_round_body(f_b: Callable, jac_b: Callable,
     return round_body
 
 
+def make_record(f_b: Callable, jac_b: Callable,
+                max_steps_per_interval: int = 2000,
+                sanity_b: Callable | None = None, n_refine: int = 1,
+                lu_backend: str = "kernel"):
+    """record(state, tout, t_bound, rtol, atol, args) -> (state, (t_rec,
+    y_rec)): BDF rounds until every lane is at tout, has failed, or the
+    interval's round budget max_steps_per_interval is spent; a lane short
+    of tout then fails.  Each lane's record is its dense output at
+    min(tout, t).  The record drivers call it once per output time, so
+    every lane waits at each tout for the slowest (JAX
+    ``_make_batch_record``; ``record.rounds`` counts the rounds run)."""
+    round_body = _make_round_body(f_b, jac_b, sanity_b, n_refine,
+                                  lu_backend)
+
+    def record(state, tout, t_bound, rtol, atol, args):
+        newton_tol = _newton_tol_of(rtol)
+        k = 0
+        while k < max_steps_per_interval \
+                and bool(torch.any((state.t < tout) & ~state.fail)):
+            state = round_body(state, tout, t_bound, rtol, atol, newton_tol,
+                               args)
+            k += 1
+        record.rounds += k
+        state = state._replace(fail=state.fail | (state.t < tout))
+        t_rec = torch.clamp_max(state.t, tout)
+        return state, (t_rec, interpolate(state.D, state.order, state.t,
+                                          state.h, t_rec))
+
+    record.rounds = 0
+    return record
+
+
+# the JAX package's name for it (one compile per batch shape there)
+make_record_jit = make_record
+
+
+def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
+                         rtol, atol, first_step,
+                         max_steps_per_interval: int = 2000,
+                         sanity_b: Callable | None = None,
+                         n_refine: int = 1, max_wall_s: float | None = None,
+                         progress_cb: Callable | None = None,
+                         args=None, record_fn=None,
+                         lu_backend: str = "kernel") -> BDFResult:
+    """Batched BDF integration with a barrier at every output time: one
+    record call per tout (make_record), driven from the host.  y0, rtol,
+    atol: [B, NEQ]; f_b(y, args) / jac_b(y, args) as for the pool.
+
+    With max_wall_s, the reference's wall-clock guard (max_runtime_allowed,
+    src/chemistry.f90:480-491): once the run has taken longer, or one
+    interval more than max(10 x the previous one, 0.5 x max_wall_s), the
+    remaining intervals are not integrated and the lanes short of
+    touts[-1] fail ("Premature finish"); their later records repeat the
+    last one.  The budget counts from the first call (the JAX package
+    exempts a freshly jitted record's first interval, for its compile).
+    Returns ts [B, n_out], ys [B, n_out, NEQ] on y0's device, and
+    n_rounds, the BDF rounds run."""
+    y0 = y0.to(F64)
+    touts = [float(t) for t in np.asarray(touts, dtype=np.float64)]
+    t_bound = touts[-1]
+    state = _batch_init(f_b, y0, t0, first_step, args)
+    record = record_fn if record_fn is not None else make_record(
+        f_b, jac_b, max_steps_per_interval, sanity_b, n_refine, lu_backend)
+    rounds0 = record.rounds
+    t_start = time.time()
+    t_prev = None
+    ts_l, ys_l = [], []
+    aborted = False
+    for i, tout in enumerate(touts):
+        if aborted:
+            ts_l.append(torch.clamp_max(state.t, tout))
+            ys_l.append(ys_l[-1])
+            continue
+        t_iv0 = time.time()
+        state, (t_rec, y_rec) = record(state, tout, t_bound, rtol, atol,
+                                       args)
+        if max_wall_s is not None:
+            # the record loop's conditions read the device every round,
+            # so the clock below measures its compute
+            now = time.time()
+            dt_iv = now - t_iv0
+            if now - t_start > max_wall_s:
+                aborted = True
+            elif t_prev is not None \
+                    and dt_iv > max(10.0 * t_prev, 0.5 * max_wall_s):
+                # single-interval blow-up guard (chemistry.f90:482-487)
+                aborted = True
+            t_prev = dt_iv
+        ts_l.append(t_rec)
+        ys_l.append(y_rec)
+        if progress_cb is not None:
+            progress_cb(i, state)
+    if aborted:
+        state = state._replace(fail=state.fail | (state.t < t_bound))
+    return BDFResult(ts=torch.stack(ts_l, dim=1), ys=torch.stack(ys_l, dim=1),
+                     t_final=state.t, fail=state.fail,
+                     n_steps=state.n_steps, n_feval=state.n_feval,
+                     n_jeval=state.n_jeval, n_lu=state.n_lu,
+                     n_rounds=record.rounds - rounds0)
+
+
+def bdf_solve_batch(f_b: Callable, jac_b: Callable, y0, t0, touts, rtol,
+                    atol, first_step, max_steps_per_interval: int = 2000,
+                    sanity_b: Callable | None = None, n_refine: int = 1,
+                    args=None, lu_backend: str = "kernel") -> BDFResult:
+    """Batched BDF integration recording at `touts`: the JAX package's
+    scan over record intervals becomes the host loop of
+    bdf_solve_batch_host, without a wall guard (the two give the same
+    numbers)."""
+    return bdf_solve_batch_host(
+        f_b, jac_b, y0, t0, touts, rtol, atol, first_step,
+        max_steps_per_interval, sanity_b, n_refine, args=args,
+        lu_backend=lu_backend)
+
+
 class ContState(NamedTuple):
     """Carry of the continuous-recording batch driver."""
     st: BDFBatchState
@@ -546,6 +890,154 @@ def _set_rows(x, idx, v):
     x = x.clone()
     x[idx] = v
     return x
+
+
+def _gather_cont(cst: ContState, rtol, atol, args, y0, idx):
+    """Lanes `idx` of every leading-batch tensor (state, tolerance rows,
+    problem args) for the straggler-compaction ladder."""
+    def g(a):
+        return a[idx]
+    return (tree_map(g, cst), rtol[idx], atol[idx], tree_map(g, args),
+            y0[idx])
+
+
+def bdf_solve_batch_cont(f_b: Callable, jac_b: Callable, y0, t0, touts,
+                         rtol, atol, first_step,
+                         max_steps_per_interval: int = 2000,
+                         sanity_b: Callable | None = None,
+                         n_refine: int = 1,
+                         max_wall_s: float | None = None,
+                         progress_cb: Callable | None = None,
+                         args=None, rounds_per_call: int = 256,
+                         retry_tols=None, compact_min: int = 0,
+                         lu_backend: str = "kernel") -> BDFResult:
+    """Continuous-recording batch solve (make_advance): advance calls of
+    rounds_per_call BDF rounds, no barrier at the output times; the same
+    result shapes as bdf_solve_batch_host, on the CPU.
+
+    retry_tols: (rtol_row, atol_row) [NEQ] tensors, the per-lane
+    tolerance ladder: a failed lane rolls back to its last record at the
+    next level, and fails only once the ladder is exhausted.
+
+    compact_min: if > 0, after a call the live lanes are gathered into a
+    window of half the width while they fit (never below compact_min; the
+    last slots repeat the first live lane and count for nothing), so that
+    the stragglers' rounds cost their live width.  It decides which lanes
+    share a window, and so their Newton refreshes.
+
+    With max_wall_s, once the calls after the first have taken longer,
+    the lanes short of touts[-1] fail (as in the pool driver, the first
+    call is not counted).  Unrecorded entries of a failed lane repeat its
+    last record (y0 if none) at min(t_final, tout)."""
+    dev = y0.device
+    y0 = y0.to(F64)
+    touts = torch.as_tensor(touts, dtype=F64, device=dev)
+    n_out = touts.shape[0]
+    t_bound = float(touts[-1])
+    B, NEQ = y0.shape
+    cst = ContState(
+        st=_batch_init(f_b, y0, t0, first_step, args),
+        irec=torch.zeros(B, dtype=torch.int64, device=dev),
+        since=torch.zeros(B, dtype=torch.int64, device=dev),
+        ts=torch.zeros(B, n_out, dtype=F64, device=dev),
+        ys=torch.zeros(B, n_out, NEQ, dtype=F64, device=dev))
+    advance = make_advance(f_b, jac_b, max_steps_per_interval, sanity_b,
+                           n_refine, lu_backend)
+    # the current positions' original lanes (the identity until the first
+    # compaction), which of them are real, and their ladder levels
+    orig = np.arange(B)
+    real = np.ones(B, bool)
+    level = np.zeros(B, np.int32)
+    n_levels = len(retry_tols) if retry_tols else 0
+    rtol_cur, atol_cur, args_cur, y0_cur = rtol, atol, args, y0
+    res = dict(ts=np.zeros((B, n_out)), ys=np.zeros((B, n_out, NEQ)),
+               t_final=np.zeros(B), fail=np.ones(B, bool),
+               n_steps=np.zeros(B, np.int64), n_feval=np.zeros(B, np.int64),
+               n_jeval=np.zeros(B, np.int64), n_lu=np.zeros(B, np.int64),
+               irec=np.zeros(B, np.int64), level=np.zeros(B, np.int32))
+
+    def flush(cst, lvl):
+        """Write the real positions' results into the full buffers."""
+        w = orig[real]
+        st = cst.st
+        for name, v in (("ts", cst.ts), ("ys", cst.ys), ("t_final", st.t),
+                        ("fail", st.fail), ("n_steps", st.n_steps),
+                        ("n_feval", st.n_feval), ("n_jeval", st.n_jeval),
+                        ("n_lu", st.n_lu), ("irec", cst.irec)):
+            res[name][w] = v.cpu().numpy()[real]
+        res["level"][w] = lvl[real]
+
+    t_start = None
+    k = 0
+    while True:
+        cst = advance(cst, touts, t_bound, rtol_cur, atol_cur, args_cur,
+                      rounds_per_call)
+        irec = cst.irec.cpu().numpy()
+        fail = cst.st.fail.cpu().numpy()
+        now = time.time()
+        if t_start is None:
+            t_start = now
+        if progress_cb is not None:
+            progress_cb(k, cst.st)
+        k += 1
+        wall_hit = max_wall_s is not None and now - t_start > max_wall_s
+        retryable = fail & (level < n_levels) & real
+        if retryable.any() and not wall_hit:
+            level[retryable] += 1
+            for lv in np.unique(level[retryable]):
+                rows = torch.as_tensor(
+                    np.nonzero(retryable & (level == lv))[0], device=dev)
+                r_row, a_row = retry_tols[lv - 1]
+                rtol_cur = _set_rows(rtol_cur, rows, r_row)
+                atol_cur = _set_rows(atol_cur, rows, a_row)
+            cst = _ladder_rollback(cst, retryable, touts, y0_cur, t0,
+                                   first_step)
+            fail = cst.st.fail.cpu().numpy()
+        done = (irec >= n_out) | fail
+        if bool(done.all()) or wall_hit:
+            if wall_hit:
+                st = cst.st
+                cst = cst._replace(st=st._replace(
+                    fail=st.fail | (cst.irec < n_out)))
+            break
+        # straggler compaction (pow2 halving)
+        W = len(orig)
+        if compact_min and W > compact_min:
+            live = ~done & real
+            n_live = int(live.sum())
+            W_new = W
+            while W_new // 2 >= max(compact_min, n_live, 1):
+                W_new //= 2
+            if W_new < W:
+                flush(cst, level)
+                sel = np.nonzero(live)[0]
+                sel_p = np.concatenate(
+                    [sel, np.full(W_new - len(sel), sel[0])])
+                cst, rtol_cur, atol_cur, args_cur, y0_cur = _gather_cont(
+                    cst, rtol_cur, atol_cur, args_cur, y0_cur,
+                    torch.as_tensor(sel_p, device=dev))
+                orig = orig[sel_p]
+                real = np.concatenate([real[sel],
+                                       np.zeros(W_new - len(sel), bool)])
+                level = level[sel_p]
+    flush(cst, level)
+    # unrecorded entries of failed or aborted lanes: their last record
+    irec = res["irec"]
+    open_m = np.arange(n_out)[None, :] >= irec[:, None]       # [B, n_out]
+    last = np.clip(irec - 1, 0, n_out - 1)
+    y_last = np.where((irec > 0)[:, None], res["ys"][np.arange(B), last],
+                      y0.cpu().numpy())
+    ys = np.where(open_m[:, :, None], y_last[:, None, :], res["ys"])
+    ts = np.where(open_m, np.minimum(res["t_final"][:, None],
+                                     touts.cpu().numpy()[None, :]),
+                  res["ts"])
+    t = torch.as_tensor
+    return BDFResult(
+        ts=t(ts), ys=t(ys), t_final=t(res["t_final"]),
+        fail=t(res["fail"] | (irec < n_out)), n_steps=t(res["n_steps"]),
+        n_feval=t(res["n_feval"]), n_jeval=t(res["n_jeval"]),
+        n_lu=t(res["n_lu"]), retry_level=t(res["level"]),
+        n_rounds=advance.rounds)
 
 
 def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,

@@ -174,6 +174,82 @@ class ChemicalODE:
                 for lv in range(2, 2 + levels)]
 
     # ---- solve ----------------------------------------------------------
+    def _y0(self, y0_species, Tgas0):
+        """[y0_species, Tgas0] as the solver's f64 state on this device."""
+        def t(a):
+            return torch.as_tensor(a, dtype=F64, device=self.device)
+        return torch.cat([t(y0_species), t(Tgas0)[..., None]], dim=-1)
+
+    def _rows(self, tol, N):
+        """A tolerance [NEQ] row (shared) or [N, NEQ] as [N, NEQ]."""
+        tol = torch.as_tensor(tol, dtype=F64, device=self.device)
+        return tol.expand(N, -1).contiguous() if tol.dim() == 1 else tol
+
+    def solve(self, env: CellEnv, y0_species, Tgas0, touts, rtol, atol,
+              first_step=1e-8, evolT: bool = False, tenv=None,
+              max_steps_per_interval: int = 2000) -> bdfmod.BDFResult:
+        """Integrate one cell with the single-system solver (bdf.bdf_solve:
+        its own refresh policy and the pivoted mixed-precision factor of
+        ops/linalg.py).  env/tenv: one cell's environments (0-d fields,
+        [4] per dust component) on this device; rtol/atol: [NEQ].  The
+        right-hand side and Jacobian are the batched ones at one lane;
+        with evolT=False the rate vector is computed once."""
+        def one(a):
+            return a[None]
+        env1, tenv1 = tree_map(one, env), tree_map(one, tenv)
+        k = None if evolT else self._rates(env1, env1.Tgas)
+        f_b, jac_b, bad = self._batch_fns(evolT)
+        args = (env1, tenv1, k)
+        return bdfmod.bdf_solve(
+            lambda y: f_b(y[None], args)[0],
+            lambda y: jac_b(y[None], args)[0],
+            self._y0(y0_species, Tgas0), 0.0, touts,
+            torch.as_tensor(rtol, dtype=F64, device=self.device),
+            torch.as_tensor(atol, dtype=F64, device=self.device),
+            first_step, max_steps_per_interval,
+            sanity_fn=lambda y: bool(bad(y[None])[0]))
+
+    def solve_batched(self, envs: CellEnv, y0_species, Tgas0, touts, rtol,
+                      atol, first_step=1e-8, evolT: bool = False,
+                      tenvs=None, max_steps_per_interval: int = 2000,
+                      n_refine: int = 1, host_loop: bool = False,
+                      continuous: bool = False,
+                      max_wall_s: float | None = None, progress_cb=None,
+                      rounds_per_call: int = 256, retry_tols=None,
+                      compact_min: int = 0,
+                      lu_backend: str = "kernel") -> bdfmod.BDFResult:
+        """Batch-native solve of B cells recording at `touts`: envs/tenvs
+        fields, y0_species [B, nS] and Tgas0 [B] on this device; rtol/atol
+        [NEQ] rows or [B, NEQ].  continuous=True: per-lane recording with
+        no barrier at the output times (bdf.bdf_solve_batch_cont, with
+        rounds_per_call, retry_tols and compact_min); host_loop=True: one
+        record call per output time with the wall guard max_wall_s and
+        progress_cb(i, state) after each (bdf.bdf_solve_batch_host, the
+        chunked sweep's driver); neither: bdf.bdf_solve_batch.  With
+        evolT=False the rate vectors are computed once per lane.
+        lu_backend as for solve_pool."""
+        f_b, jac_b, sanity_b = self._batch_fns(evolT)
+        kb = None if evolT else self._rates(envs, envs.Tgas)
+        args = (envs, tenvs, kb)
+        y0 = self._y0(y0_species, Tgas0)
+        B = y0.shape[0]
+        rtol, atol = self._rows(rtol, B), self._rows(atol, B)
+        kw = dict(max_steps_per_interval=max_steps_per_interval,
+                  sanity_b=sanity_b, n_refine=n_refine, args=args,
+                  lu_backend=lu_backend)
+        if continuous:
+            return bdfmod.bdf_solve_batch_cont(
+                f_b, jac_b, y0, 0.0, touts, rtol, atol, first_step,
+                max_wall_s=max_wall_s, progress_cb=progress_cb,
+                rounds_per_call=rounds_per_call, retry_tols=retry_tols,
+                compact_min=compact_min, **kw)
+        if host_loop:
+            return bdfmod.bdf_solve_batch_host(
+                f_b, jac_b, y0, 0.0, touts, rtol, atol, first_step,
+                max_wall_s=max_wall_s, progress_cb=progress_cb, **kw)
+        return bdfmod.bdf_solve_batch(f_b, jac_b, y0, 0.0, touts, rtol,
+                                      atol, first_step, **kw)
+
     def solve_pool(self, envs: CellEnv, y0_species, Tgas0, touts, rtol,
                    atol, width: int, first_step=1e-8,
                    evolT: bool = False, tenvs=None,
@@ -196,21 +272,11 @@ class ChemicalODE:
         comparison.
         """
         f_b, jac_b, sanity_b = self._batch_fns(evolT)
-        kb = None
-        if not evolT:
-            kb = self._rates(envs, envs.Tgas)
+        kb = None if evolT else self._rates(envs, envs.Tgas)
         args_pool = (envs, tenvs, kb)
-        y0 = torch.cat([torch.as_tensor(y0_species, dtype=F64,
-                                        device=self.device),
-                        torch.as_tensor(Tgas0, dtype=F64,
-                                        device=self.device)[:, None]], dim=1)
+        y0 = self._y0(y0_species, Tgas0)
         N = y0.shape[0]
-        rtol = torch.as_tensor(rtol, dtype=F64, device=self.device)
-        atol = torch.as_tensor(atol, dtype=F64, device=self.device)
-        if rtol.dim() == 1:
-            rtol = rtol.expand(N, -1).contiguous()
-        if atol.dim() == 1:
-            atol = atol.expand(N, -1).contiguous()
+        rtol, atol = self._rows(rtol, N), self._rows(atol, N)
         return bdfmod.bdf_solve_batch_pool(
             f_b, jac_b, y0, 0.0, touts, rtol, atol, first_step,
             width=width, max_steps_per_interval=max_steps_per_interval,

@@ -11,9 +11,12 @@ The nested-NLTE cooling paths of the reference are replaced by the
 analytic and LUT paths the reference itself prefers by default, as in the
 JAX package.  ``solve_equilibrium_T`` gives the equilibrium temperature
 of the ``evolT=False`` sweep.  The gas-dust energy-exchange modes
-(``tdust_iter_tandem``, ``dust_gas_linear_couple``,
-``allow_gas_dust_en_exch``) are not ported yet: switching them on raises
-``NotImplementedError``.
+(``tdust_iter_tandem`` with ``allow_gas_dust_en_exch``: each dust
+component's temperature re-solved with the gas-collision energy included;
+``dust_gas_linear_couple``: the gas-dust temperature difference damped by
+the dust emission's response) take the Tdust(energy) lookup table of the
+optics tables, ``ThermalBalance(tdust_lut=...)``, and run under the JAX
+package's conditions.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ class HcConfig:
     # modulated by the ambipolar-diffusion MRI fit from the instantaneous
     # ion fraction (reference src/disk.f90:30,3415-3427)
     use_fixed_alpha_visc: bool = True
-    # gas<->dust energy-exchange modes (reference src/disk.f90:31,35,
-    # 4702-4721): not ported yet
+    # gas<->dust energy-exchange modes (reference a_disk flags
+    # src/disk.f90:31,35 + tandem Tdust re-solve src/disk.f90:4702-4721);
+    # both need a Tdust(energy) LUT passed to ThermalBalance(tdust_lut=...)
     allow_gas_dust_en_exch: bool = False
     tdust_iter_tandem: bool = False
     dust_gas_linear_couple: bool = False
@@ -166,11 +170,8 @@ class ThermalBalance:
     device."""
 
     def __init__(self, net: ChemNet, config: HcConfig = HcConfig(),
-                 device="cuda", data_dir: str | None = None):
-        if config.allow_gas_dust_en_exch or config.tdust_iter_tandem \
-                or config.dust_gas_linear_couple:
-            raise NotImplementedError(
-                "the gas-dust energy-exchange modes are not ported yet")
+                 device="cuda", data_dir: str | None = None,
+                 tdust_lut=None):
         if not config.use_analytical_CII_OI:
             raise NotImplementedError(
                 "NLTE CII/OI cooling inside the RHS is replaced by the "
@@ -178,6 +179,18 @@ class ThermalBalance:
         self.cfg = config
         self.net = net
         self.device = torch.device(device)
+        # (lut_Tds [nT], lut_vals [n_dust, nT]) from ops.optics.McTables:
+        # the cumulative kappa_abs*B integral of get_Tdust_from_LUT
+        # (reference montecarlo.f90:1487-1526); enables the tandem and
+        # linear-couple gas-dust exchange modes
+        self.tdust_lut = None
+        if tdust_lut is not None:
+            self.tdust_lut = tuple(
+                torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                device=self.device) for a in tdust_lut)
+            # the LUT's top temperature, read once here: the exchange
+            # loops below clamp to it without a host read
+            self._Td_top = float(np.asarray(tdust_lut[0])[-1])
         ddir = pathlib.Path(data_dir) if data_dir else defaults.DATA
         self.neufeld_h2 = tables.NeufeldH2(device)
         self.neufeld_h2o = tables.NeufeldH2O(device)
@@ -219,6 +232,92 @@ class ThermalBalance:
         return (env.G0_UV_toISM * _exp(-c.UVext2Av * env.Av_toISM)
                 * env.f_selfshielding_toISM[..., 1]
                 + env.G0_UV_H2phd * env.f_selfshielding_toStar[..., 1])
+
+    def _lut_Td(self, val):
+        """Energy per dust mass -> Tdust per component (forward interp on
+        the cumulative emission LUT, reference get_Tdust_from_LUT
+        montecarlo.f90:856).  val: [..., nd], component j on the LUT's
+        row j."""
+        Tds, vals = self.tdust_lut
+        nd, nT = vals.shape
+        q = val.reshape(-1, nd).T.contiguous()              # [nd, M]
+        i = torch.clamp(torch.searchsorted(vals, q), 1, nT - 1)
+        v0 = torch.gather(vals, 1, i - 1)
+        v1 = torch.gather(vals, 1, i)
+        t = (q - v0) / torch.clamp_min(v1 - v0, 1e-300)
+        Tv = Tds[i - 1] + torch.clamp(t, 0.0, 1.0) * (Tds[i] - Tds[i - 1])
+        first, last = vals[:, :1], vals[:, -1:]
+        Tv = torch.where(q <= first,
+                         Tds[0] * q / torch.clamp_min(first, 1e-300), Tv)
+        Tv = torch.where(q >= last, Tds[-1], Tv)
+        return Tv.T.reshape(val.shape)
+
+    def _lut_val(self, Td):
+        """Tdust -> energy per dust mass per component (inverse of
+        _lut_Td).  Td: [..., nd]."""
+        Tds, vals = self.tdust_lut
+        nd, nT = vals.shape
+        i = torch.clamp(torch.searchsorted(Tds, Td.contiguous()), 1, nT - 1)
+        comp = torch.arange(nd, device=Td.device)
+        t = (Td - Tds[i - 1]) / torch.clamp_min(Tds[i] - Tds[i - 1], 1e-300)
+        return vals[comp, i - 1] + torch.clamp(t, 0.0, 1.0) \
+            * (vals[comp, i] - vals[comp, i - 1])
+
+    def _tandem_tdusts(self, Tg, coeff_i, tenv: ThermalEnv):
+        """Re-solve each component's Tdust with the gas-collision energy
+        included: Td = LUT((en_gain + en_exchange(Tg, Td)) / 4 pi m_dust),
+        damped Newton with a secant slope, 16 iterations (reference
+        solve_a_Tdust, src/disk.f90:4536-4548).  Tg: [B]; coeff_i and the
+        result: [B, 4], the padded components unchanged.  The fixed
+        iteration count needs no host read."""
+        nd = self.tdust_lut[1].shape[0]
+        gains = tenv.en_gains[..., :nd]
+        gains = torch.where(torch.isfinite(gains), gains, 0.0)
+        inv4pm = 1.0 / torch.clamp_min(
+            4.0 * math.pi * tenv.mdusts_cell[..., :nd], TINY)
+        active = (tenv.n_dusts[..., :nd] > 1e-20) \
+            & (tenv.mdusts_cell[..., :nd] > TINY)
+        coeff = coeff_i[..., :nd]
+        vol = tenv.volume[..., None]
+        floor = -FRAC_DUST_LOSE_EN * gains
+
+        def en_ex(Td):
+            per_vol = coeff * (Tg[..., None] - Td)
+            # (per_vol * AU2cm^3) first, as the JAX package orders it
+            return torch.maximum((per_vol * c.AU2cm ** 3) * vol, floor)
+
+        Td = tenv.Tdusts[..., :nd]
+        for _ in range(16):
+            dTd = 1e-2 * Td + 1e-1
+            # both LUT evaluations of the secant in one call
+            Ts = self._lut_Td(torch.stack([
+                (gains + en_ex(Td)) * inv4pm,
+                (gains + en_ex(Td + dTd)) * inv4pm]))
+            Ts1, Ts2 = Ts[0], Ts[1]
+            kk = (Ts2 - Ts1) / dTd
+            prop = torch.where(torch.abs(1.0 - kk) <= 1e-15, Td,
+                               (Ts1 - kk * Td) / (1.0 - kk))
+            # damped and clamped: when the exchange term saturates the
+            # LUT, the undamped Newton ping-pongs between its endpoints
+            prop = torch.clamp(prop, 0.0, self._Td_top)
+            Td_new = 0.5 * (Td + prop)
+            ok = active & (Td_new > 0.0) & torch.isfinite(Td_new)
+            Td = torch.where(ok, Td_new, Td)
+        return torch.cat([Td, tenv.Tdusts[..., nd:]], dim=-1)
+
+    def _demit_dtd(self, Td_i, tenv: ThermalEnv):
+        """d(emitted power per volume)/dTdust per component from the LUT
+        slope (reference get_dEmit_dTd, src/disk.f90:4550-4562).  Td_i:
+        [B, 4]; the padded components give 0."""
+        nd = self.tdust_lut[1].shape[0]
+        Td = Td_i[..., :nd]
+        dT = 1e-2 * Td + 1e-2
+        e = self._lut_val(torch.stack([Td, Td + dT]))
+        slope = (e[1] - e[0]) / dT * 4.0 * math.pi \
+            * (tenv.mdusts_cell[..., :nd] / c.AU2cm ** 3) \
+            / torch.clamp_min(tenv.volume, TINY)[..., None]
+        return torch.cat([torch.clamp_min(slope, 0.0),
+                          torch.zeros_like(Td_i[..., nd:])], dim=-1)
 
     def h2_form_rate(self, k_gH63_per_sec, X_gH, X_HI, n_gas):
         """dn(H2)/dt from grain surface (reference disk.f90:4302-4315,
@@ -409,7 +508,19 @@ class ThermalBalance:
         base = 2.0 * c.kBoltzmann_CGS * f_a * n * (
             cs_H * (X_HI + X_Hplus) + cs_H2 * X_H2)
         coeff_i = base[..., None] * tenv.sig_dusts * tenv.n_dusts
-        dT_i = T[..., None] - tenv.Tdusts
+        if cfg.allow_gas_dust_en_exch and cfg.tdust_iter_tandem \
+                and self.tdust_lut is not None:
+            Td_i = self._tandem_tdusts(Tpos, coeff_i, tenv)
+        else:
+            Td_i = tenv.Tdusts
+        dT_i = T[..., None] - Td_i
+        if cfg.dust_gas_linear_couple and self.tdust_lut is not None:
+            # damp the gas-dust temperature difference by how fast dust
+            # emission responds (reference heating_cooling.f90:775-777
+            # with dEmit_dTd from src/disk.f90:4550-4562; the slope comes
+            # from the Tdust LUT, as in the JAX package)
+            demit = self._demit_dtd(Td_i, tenv)
+            dT_i = dT_i * demit / torch.clamp_min(demit + coeff_i, TINY)
         # the inf sentinel ("unlimited dust heating budget") must not
         # enter arithmetic
         eg_fin = torch.isfinite(tenv.en_gains)

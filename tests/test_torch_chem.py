@@ -188,15 +188,6 @@ def test_thermal_terms_and_dTdt_match_jax(both):
     np.testing.assert_allclose(dt, dj, rtol=1e-10, atol=0)
 
 
-def test_thermal_rejects_unported_modes(both):
-    from rac2d_torch.ops.thermal import HcConfig, ThermalBalance
-    for kw in ("tdust_iter_tandem", "dust_gas_linear_couple",
-               "allow_gas_dust_en_exch"):
-        with pytest.raises(NotImplementedError):
-            ThermalBalance(both["t_tb"].net, HcConfig(**{kw: True}),
-                           device="cpu")
-
-
 def test_coupled_f_and_jac_match_jax(both):
     """The evolT system: f and the dense Jacobian with its FD temperature
     column and key-species row (odesys.py:152-184 in both packages)."""

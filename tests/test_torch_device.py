@@ -15,6 +15,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,7 +135,8 @@ def test_port_imports_no_jax():
             "rac2d_torch.models.imaging, rac2d_torch.ops.raytrace, "
             "rac2d_torch.ops.stateq, rac2d_torch.ops.linalg, "
             "rac2d_torch.ops.vertical, rac2d_torch.models.amr, "
-            "rac2d_torch.ops.analysis\n"
+            "rac2d_torch.ops.analysis, rac2d_torch.ops.bdf, "
+            "rac2d_torch.ops.thermal\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rac2d_tpu'))\n"
@@ -192,3 +194,45 @@ def test_mol_tables_take_the_callers_device():
                 for t in getattr(tab, f)]
     assert len(tensors) > 10
     assert all(t.device.type == "meta" for t in tensors)
+
+
+# the solver drivers: no device of their own, they run where their
+# inputs are; ChemicalODE's solvers run on the ODE's device (the card by
+# default)
+BDF_DRIVERS = ["bdf_solve", "bdf_solve_batch", "bdf_solve_batch_host",
+               "bdf_solve_batch_cont", "bdf_solve_batch_pool"]
+
+
+@pytest.mark.parametrize("name", BDF_DRIVERS)
+def test_bdf_drivers_follow_their_inputs(name):
+    from rac2d_torch.ops import bdf
+    assert _device_param(getattr(bdf, name)) is None, name
+
+
+@pytest.mark.parametrize("name", ["solve", "solve_batched", "solve_pool"])
+def test_ode_solvers_follow_the_ode_device(name):
+    from rac2d_torch.ops import odesys
+    assert _device_param(getattr(odesys.ChemicalODE, name)) is None, name
+    assert _device_param(odesys.ChemicalODE).default == "cuda"
+
+
+def test_thermal_lut_defaults_to_the_card():
+    """ThermalBalance(tdust_lut=...) holds its LUT on its device, the card
+    unless the caller names another; without CUDA the default raises."""
+    from rac2d_torch import defaults
+    from rac2d_torch.io import umist
+    from rac2d_torch.ops.thermal import HcConfig, ThermalBalance
+    sig = inspect.signature(ThermalBalance.__init__).parameters
+    assert sig["tdust_lut"].default is None
+    assert sig["device"].default == "cuda"
+    net = umist.load_network(defaults.NETWORK,
+                             enthalpy_path=defaults.ENTHALPIES)
+    lut = (np.linspace(1.0, 2000.0, 8), np.linspace(0.0, 1.0, 8)[None])
+    cfg = HcConfig(tdust_iter_tandem=True, allow_gas_dust_en_exch=True)
+    tb = ThermalBalance(net, cfg, device="cpu", tdust_lut=lut)
+    assert all(t.device.type == "cpu" and t.dtype == torch.float64
+               for t in tb.tdust_lut)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        ThermalBalance(net, cfg, tdust_lut=lut)

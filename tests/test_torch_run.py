@@ -15,8 +15,12 @@
     so the two start the same lanes at different rounds.  Two columns (10
     cells) at windows 4 and 16, 1e1 yr, and the fixture's own grid (117
     active cells) are marked slow.
-(b) Every option whose code path is not ported (the chunked sweep, the
-    gas-dust exchange modes) raises NotImplementedError.
+check_hand_off serves the other hand-off files too: the evolT=False
+sweep (tests/test_torch_eq_hand_off.py), the gas-dust exchange modes
+(tests/test_torch_exchange_hand_off.py, test_torch_linear_hand_off.py)
+and the chunked sweep (tests/test_torch_chunked_hand_off.py,
+test_torch_chunked_eq_hand_off.py); `hc` there is a dict of HcConfig
+fields, made into each package's HcConfig.
 
 A full port run is in tests/test_torch_run_loop.py (a file of its own, so
 that the two long runs go to two workers).
@@ -26,7 +30,6 @@ import numpy as np
 import pytest
 
 from rac2d_torch import convert
-from rac2d_torch.ops.thermal import HcConfig
 
 from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
@@ -40,19 +43,22 @@ GRIDS = {"e2e": (5, 5.0), "cut": (2, 0.3), "one": (1, 0.3),
 def tiny_cfg(pkg, t_max, grid="cut", chem_chunk=16, evolT=True, **kw):
     """The tiny model of tests/test_e2e_driver.py (CI size), by default
     with evolT=True and neither vertical structure nor AMR (kw: other
-    DiskConfig fields), as `pkg`'s (driver module, DiskConfig)."""
+    DiskConfig fields; hc as a dict of HcConfig fields), as `pkg`'s
+    (driver module, DiskConfig)."""
     if pkg == "jax":
         from rac2d_tpu import defaults
         from rac2d_tpu.models import density, driver
         from rac2d_tpu.models.grid import GridConfig
-        from rac2d_tpu.ops import optics
+        from rac2d_tpu.ops import optics, thermal
         kw = {**dict(do_vertical_every=0, do_refine=False, do_merge=False,
                      shard_chemistry=False), **kw}
     else:
         from rac2d_torch import defaults
         from rac2d_torch.models import density, driver
         from rac2d_torch.models.grid import GridConfig
-        from rac2d_torch.ops import optics
+        from rac2d_torch.ops import optics, thermal
+    if "hc" in kw:
+        kw["hc"] = thermal.HcConfig(**kw["hc"])
     ncol, dlr = GRIDS[grid]
     return driver, driver.DiskConfig(
         star_mass=0.6, star_radius=1.0, star_T=4000.0, lumi_Xray=1e29,
@@ -111,6 +117,9 @@ def check_hand_off(grid, chem_chunk, t_max, **kw):
     xt, xj = tm.X[ki][:, act], jm.X[ki][:, act]
     big = np.abs(xj) > 1e-12
     rel = np.abs(xt - xj)[big] / np.abs(xj)[big]
+    print(f"worst key-species rel diff {rel.max():.3e} over {big.sum()} "
+          f"entries above 1e-12; max Tgas rel diff "
+          f"{np.abs(tm.Tgas[act] / jm.Tgas[act] - 1).max():.3e}")
     assert rel.max() < 0.05, rel.max()
     # the sweep moved the chemistry: some abundance above 1e-12 by > 10%
     x0 = X0[:, act]
@@ -120,17 +129,3 @@ def check_hand_off(grid, chem_chunk, t_max, **kw):
     assert (np.abs(Tt - Tj) < 0.02 * Tj).all(), np.abs(Tt / Tj - 1).max()
     # the sweep evolved the gas away from its first guess
     assert (np.abs(Tt / (jm.Tdust[act] * 1.1 + 10.0) - 1) > 1e-3).any()
-
-
-@pytest.mark.parametrize("option,value", [
-    ("chem_stream", False),
-    ("hc", HcConfig(tdust_iter_tandem=True))], ids=["chem_stream", "hc"])
-def test_unported_options_raise(option, value):
-    driver, cfg = tiny_cfg("torch", 1e-4)
-    setattr(cfg, option, value)
-    m = driver.DiskModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=option):
-        m.run()
-    assert not m.mc_stats          # refused before any work
-    with pytest.raises(NotImplementedError, match=option):
-        m.chemistry_step(1)

@@ -427,3 +427,52 @@ def test_sweep_tolerances_take_the_solved_cells_dust(monkeypatch):
     np.testing.assert_allclose(
         atol[gi].numpy(),
         max(tm.cfg.atol_chem, tm.d2h[act].mean() * 1e-8), rtol=1e-15)
+
+
+def test_chunked_sweep_tolerances_take_the_solved_cells_dust(monkeypatch):
+    """The chunked sweep (chem_stream=False) takes the dust-to-H ratio of
+    its grain atols over the cells it solves too, at every tolerance
+    level of _solve_chunk (the JAX package's _solve_chunk averages over
+    every cell; a repair in the port only).  The first chunk's record
+    solve is stopped, and its tolerances read."""
+    from rac2d_torch.ops import odesys
+
+    class Stop(Exception):
+        pass
+
+    _, tm = seeded_models()
+    tm.cfg.chem_stream = False
+    g = tm.grid
+    gone = np.nonzero(g.using)[0][-3:]
+    g.n0[gone] *= 1e-31
+    g.using[gone] = False
+    tm._derive_cell_state()
+    act = g.using
+    assert tm.d2h.mean() > 1e20 * tm.d2h[act].mean()
+    seen = []
+    ladder = odesys.tolerance_ladder
+
+    def spy(net, level, rtol0, atol0, d2g, *a, **k):
+        seen.append((level, d2g))
+        return ladder(net, level, rtol0, atol0, d2g, *a, **k)
+
+    def stop(envs, y0, T0, touts, rtol, atol, *a, **k):
+        assert k["host_loop"] and not k.get("continuous", False)
+        raise Stop(atol)
+
+    monkeypatch.setattr(odesys, "tolerance_ladder", spy)
+    monkeypatch.setattr(tm.ode, "solve_batched", stop)
+    with pytest.raises(Stop) as got:
+        tm.chemistry_step(1)
+    assert seen == [(1, tm.d2h[act].mean())]
+    atol = got.value.args[0]
+    gi = tm.net.grain_species_idx
+    np.testing.assert_allclose(
+        atol[gi].numpy(),
+        max(tm.cfg.atol_chem, tm.d2h[act].mean() * 1e-8), rtol=1e-15)
+    # a level-3 chunk takes the same ratio
+    cells = np.nonzero(act)[0]
+    with pytest.raises(Stop):
+        tm._solve_chunk(cells[:4], 4, 3, np.array([1e-8, 1e-6]),
+                        tm._sweep_d2g(cells))
+    assert seen[-1] == (3, tm.d2h[act].mean())
