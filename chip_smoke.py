@@ -181,13 +181,16 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      chunk lines and K1-K4 in its log, phase 11's physical bars on its
      checkpoint's state; (b) on phase 11's model after phase 12, 512 of
      its active cells (seed 0) from one snapshot of X and Tgas, evolT, to
-     phase 11's MAIN_T_MAX, exchange off: the pool sweep at width 256 and
-     the chunked sweep in chunks of 256, each with its BDF rounds, wall time,
+     phase 11's MAIN_T_MAX, exchange off, CUDA's scatter sums in a fixed
+     order (since phase 15; see Deterministic): the pool sweep at width
+     256 and the chunked sweep in chunks of 256, each with its BDF rounds,
+     wall time,
      ms/round, failed cells and K1/K2 launches and held to phase 11's
      physical bars, then the worst and median key-species difference
      between the two over the cells clean in both (no bar: it measures how
      far a lane's solution depends on its window mates); (c) 256 of those
-     cells in one window of the pool sweep with the ThermalBalance rebuilt
+     cells in one window of the pool sweep (in a fixed summation order, as
+     (b)) with the ThermalBalance rebuilt
      with the Tdust LUT and all three exchange modes: ms/round and K1/K2
      launches a round against (b)'s pool, the CUDA kernels one RHS and one
      Jacobian evaluation launch with the modes off and on (torch.profiler),
@@ -197,17 +200,50 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      tests/test_single_cell.py to 1e2 yr on the card and on the CPU (key
      species within 1%), and solve_batched(continuous=True, retry_tols=...)
      on phase 5's 3 COUPLED_CELLS to T_MAX, within 5% of phase 5's final
-     states.  Phase 14 aims at <= 300 s.
+     states.  Phase 14 aims at <= 300 s;
+ 15. the last modules of the port: (a) the inv backend at phase 4's
+     shapes (B 1024 and 256, n 485): K1 then blocklu.block_invert, its
+     time and bound (getri's 4/3 n^3 flop), one inverse apply beside K2
+     (times and bytes bounds), _bsolve on "inv" against "kernel" within
+     1e-8 max|x| + 1e-10 (2 refinements, tests/test_blocklu.py's case at
+     n 485), and pool sweeps of 64 of phase 14b's cells in one window
+     from its snapshot to 1e-6 yr with RAC2D_LU_BACKEND "kernel", "inv",
+     "kernel" in turns (the same failed cells, key species within 5%,
+     Tgas 2%; ms/round);
+     (b) the sharded path on phase 11's model, through its entry points:
+     (i) in a process group of one rank (NCCL, cuda:0) with the model's
+     sharded branches on and shard_chemistry set, chemistry_step on
+     phase 14b's 512 cells alone from its snapshot (the chunked sweep,
+     its chunks through sharded_chemistry_solve, X, Tgas and the failed
+     cells broadcast), held within rtol 1e-8 (atol 1e-25, the same failed
+     cells) of phase 14b's chunked sweep in one process, both with CUDA's
+     scatter sums in a fixed order (torch's deterministic mode: its
+     atomic f64 sums otherwise change a step decision now and then, and
+     two runs of one sweep differ up to the 1e-4 rtol); then
+     run_mc(n_passes=1), the pass sharded and its fields broadcast, held
+     to this rank's own pass within 1e-5 of each channel's largest entry,
+     the fates equal; K1-K4 counted over both (launches_sharded); (ii)
+     run_mc(n_passes=1) in 2 processes on the one card joined with gloo
+     (NCCL refuses two ranks on one device; the collectives run on host
+     copies), each rebuilding phase 11's model from its configuration and
+     state: the tallies against the sum of the ranks' own passes (1e-5,
+     fates summed exactly), the same tallies and Tdust on both ranks; (c)
+     save_state_dist / load_state_dist of phase 11's model in the
+     one-rank group, bit-equal; (d) rac2d_torch.postprocess on phase 12c's
+     iteration tables and FITS cubes (profiles, CO columns, scale heights,
+     moment maps, pv_cut, SpecLine, a beam-convolved continuum image):
+     finite and shaped as their inputs.  Phase 15 aims at <= 150 s.
 Phases 7 and 8 also print the bounds of K3 and K4 (bytes: for K3 the
 packet state read and written once, the tables read once, the tally bins
 the run touched read and written once; for K4 the two bases above); no
 single PyTorch call computes either.
 Depth cuts for the time limit: phases 5-6 run to T_MAX = 1e-4 yr (1 yr
 until phase 14 was added, 1e2 yr until phase 11 was), phase 11 to
-MAIN_T_MAX = 1e-5 yr (and phase 14b-c, which solve from its state) and
-phase 12c to 1e-5 yr (1e-4 until phase 14).  With phase 14 and the
-earlier depths the script took 1405 s on an H100 80GB HBM3 (700 W), past
-its 1200 s limit.
+MAIN_T_MAX = 1e-5 yr (and phases 14b-c and 15b, which solve from its
+state) and phase 12c to 1e-5 yr (1e-4 until phase 14).  With phase 14
+and the earlier depths the script took 1405 s on an H100 80GB HBM3 (700
+W), past its 1200 s limit.  Phase 15 keeps one sharded chemistry sweep
+(15b (i)); its 2 processes (15b (ii)) run the MC pass only.
 The second-to-last lines are the kernels' JSON record (K1, K2 and one line
 for each TPU probe kernel that K3 or K4 replaces, each with its time,
 bound, plain and library times and launches: `launches` over phase 11's
@@ -216,8 +252,11 @@ run, `launches_slice` over phase 5 (K1/K2) or phase 9 (K3/K4),
 imaging of phases 12a-b launches none), `launches_e2e` over phase 13's
 run, `launches_cli_chunked` over phase 14a's command-line run (from its
 log), and for K1/K2 `launches_chunked` over phase 14b's chunked sweep and
-`launches_exchange` over phase 14c's sweep; the K1/K2
-rows hold their check and times at phase 11's window B=RUN_CHUNK and,
+`launches_exchange` over phase 14c's sweep, and `launches_sharded` over
+phase 15b (i)'s chemistry_step and run_mc and, for K3/K4,
+`launches_sharded_2proc` for each process of 15b (ii); the K1/K2 rows
+carry phase 15a's `inv_invert` (block_invert after K1) and `inv_apply`
+(the apply beside K2) times and bounds by B; the K1/K2 rows hold their check and times at phase 11's window B=RUN_CHUNK and,
 under "slice", at phase 5's B=W; K3/K4
 rows add device_ms, the queued device time; every row holds, under
 "cli", its check and times at phase 12c's shape, and K3/K4 rows under
@@ -1232,7 +1271,8 @@ def recheck_plain(m):
 # the main path: DiskModel.run on the bench disk (phase 11)
 
 RUN_T_MAX = 1e-4          # yr; production 1e6 (phase 13)
-MAIN_T_MAX = 1e-5         # yr, phases 11 and 14b-c (RUN_T_MAX until PR 11)
+MAIN_T_MAX = 1e-5         # yr, phases 11, 14b-c and 15 (RUN_T_MAX until
+#                           phase 14)
 RUN_CHUNK = 1024          # the pool window (chem_chunk); production 256
 RUN_BUDGET_S = 360.0      # the sweep's wall budget: chunk_wall_s x chunks
 #                           x nlocal_iter (DiskModel._pool_sweep)
@@ -1646,7 +1686,7 @@ points = [[10.0, 1.0]]
 
 def cli_toml(path):
     """examples/verify_model.toml with phase 12c's changes, written to
-    path: t_max 1e-4 yr in one window, NLTE lines, per-iteration tables
+    path: t_max 1e-5 yr in one window, NLTE lines, per-iteration tables
     and one analysis point."""
     import pathlib
     root = pathlib.Path(__file__).resolve().parent
@@ -1727,14 +1767,16 @@ def check_cli_outputs(outdir, log, per_iteration, lines_want=None):
                 f"{bad or 'none'}"), lines
 
 
-def check_cli(dev):
+def check_cli(dev, keep):
     """Phases 12c-d: python -m rac2d_torch on the verify model (its tables,
-    with t_max 1e-4 yr in one window, per-iteration tables, one analysis
+    with t_max 1e-5 yr in one window, per-iteration tables, one analysis
     point and NLTE lines), --iters 1, then resumed from its checkpoint
     with --iters 0; then the kernels at the shapes the first run gave
-    them."""
+    them.  The first run's output files are copied into `keep` (for
+    phase 15d)."""
     import pathlib
     import re
+    import shutil
     import tempfile
     walls = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1748,6 +1790,7 @@ def check_cli(dev):
             f"s, exit 0; {what}; kernel launches in its log: {counts}")
         if not ok or len(counts) != 4 or min(counts.values()) <= 0:
             raise Fail("phase 12c: the command line's outputs or launches")
+        shutil.copytree(out1, keep, dirs_exist_ok=True)
         walls["resume"], log2 = run_cli(
             out2, toml, "--resume", str(out1 / "checkpoint.npz"),
             "--iters", "0")
@@ -2166,22 +2209,61 @@ def check_cli_chunked(dev):
 
 def pick_cells(m, n, seed):
     """n of the model's active cells (numpy seed), ordered by density as
-    chemistry_step orders a sweep's cells."""
+    chemistry_step orders a sweep's cells (its expression, on the same
+    sorted indices: phase 15b's chemistry_step on these cells alone
+    takes them in this order)."""
     act = np.nonzero(m.grid.using)[0]
-    sel = np.random.default_rng(seed).choice(act, n, replace=False)
-    return sel[np.argsort(m.grid.n0[sel], kind="stable")]
+    sel = np.sort(np.random.default_rng(seed).choice(act, n, replace=False))
+    return sel[np.argsort(m.grid.n0[sel])]
 
 
-def run_sweep(m, name, cells, touts):
-    """One sweep of `cells` on the model from its present X and Tgas:
-    {the cells' X and Tgas after it, failed mask, wall s, BDF rounds,
-    K1/K2 launches}."""
+class Deterministic:
+    """A block in which CUDA's scatter sums run in a fixed order
+    (torch.use_deterministic_algorithms, warn-only; index_add_ in the
+    right-hand side and the Jacobian, and in the column products, is
+    otherwise an atomic f64 sum whose order changes from run to run, and
+    with it a step decision now and then: two runs of the same chunked
+    sweep then differ by about the 1e-4 rtol, 5.0e-4 once on an H100
+    80GB HBM3).  Uninitialized memory is not filled.  Records the
+    distinct warn-only notices (ops that have no fixed-order variant) in
+    .notices."""
+
+    def __enter__(self):
+        import warnings
+        import torch.utils.deterministic as tud
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     tud.fill_uninitialized_memory)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        tud.fill_uninitialized_memory = False
+        self.rec = warnings.catch_warnings(record=True)
+        self.caught = self.rec.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        import torch.utils.deterministic as tud
+        self.rec.__exit__(*exc)
+        self.notices = sorted({str(w.message).splitlines()[0][:120]
+                               for w in self.caught})
+        torch.use_deterministic_algorithms(self.prev[0],
+                                           warn_only=self.prev[1])
+        tud.fill_uninitialized_memory = self.prev[2]
+        return False
+
+
+def run_sweep(m, name, cells, touts, fixed_order=False):
+    """One sweep of `cells` on the model from its present X and Tgas,
+    with fixed_order in a Deterministic block: {the cells' X and Tgas
+    after it, failed mask, wall s, BDF rounds, K1/K2 launches}."""
+    import contextlib
     from rac2d_torch.ops import kernels
     sweep = m._pool_sweep if name == "pool" else m._chunked_sweep
     kernels.reset_launches()
     t0 = time.time()
-    pending = sweep(cells, touts)
-    torch.cuda.synchronize()
+    with Deterministic() if fixed_order else contextlib.nullcontext():
+        pending = sweep(cells, touts)
+        torch.cuda.synchronize()
     wall = time.time() - t0
     lc = kernels.launch_counts()
     rounds = m.pool_result.n_rounds if name == "pool" else m.chunk_rounds
@@ -2201,11 +2283,13 @@ def say_sweep(tag, r, n):
 def compare_sweeps(m):
     """Phase 14b on phase 11's model after its run: SWEEP_CELLS active
     cells (seed 0) solved twice from one snapshot of X and Tgas, evolT,
-    to phase 11's t_max (MAIN_T_MAX), exchange off: (i) the pool sweep at
-    width SWEEP_W, (ii) the chunked sweep in chunks of SWEEP_W.  Each held
-    to phase 11's physical bars; then the worst and median key-species
-    difference between them over the cells clean in both (no bar: a
-    measurement).  Returns
+    to phase 11's t_max (MAIN_T_MAX), exchange off, both in a fixed
+    summation order (so that their difference is the window structure's
+    alone, not CUDA's atomic sums): (i) the pool sweep at width SWEEP_W,
+    (ii) the chunked sweep in chunks of SWEEP_W.  Each held to phase 11's
+    physical bars; then the worst and median key-species difference
+    between them over the cells clean in both (no bar: a measurement).
+    Returns
     (the pool's result, the chunked one's, the cells, the snapshot)."""
     from rac2d_torch.ops import bdf
     t_ph = time.time()
@@ -2214,14 +2298,16 @@ def compare_sweeps(m):
     X0, T0 = m.X.copy(), m.Tgas.copy()
     cfg.chem_chunk, cfg.chunk_wall_s = SWEEP_W, SWEEP_CHUNK_WALL_S
     touts = bdf.log_output_times(cfg.dt_first, cfg.t_max, cfg.ratio_tstep)
-    m.prepare_sweep_fields()
+    # in a fixed order too: phase 15b's chemistry_step computes them again
+    with Deterministic():
+        m.prepare_sweep_fields()
     say(f"phase 14b setup: {len(cells)} of {int(m.grid.using.sum())} active "
         f"cells (seed 0), {len(touts)} output times to {cfg.t_max:g} yr, "
         f"width/chunk {SWEEP_W}, chunk_wall_s {SWEEP_CHUNK_WALL_S:g} s")
     out = {}
     for name in ("pool", "chunked"):
         m.X, m.Tgas = X0.copy(), T0.copy()
-        r = out[name] = run_sweep(m, name, cells, touts)
+        r = out[name] = run_sweep(m, name, cells, touts, fixed_order=True)
         say_sweep(f"phase 14b ({'i' if name == 'pool' else 'ii'}) {name} "
                   "sweep", r, len(cells))
         if min(r["K1"], r["K2"]) <= 0:
@@ -2290,7 +2376,7 @@ def exchange_window(m, dev, pool, cells, snap):
                                        tdust_lut=lut)
     m.ode = odesys.ChemicalODE(m.net, thermal=m.thermal, device=dev)
     m.X, m.Tgas = X0.copy(), T0.copy()
-    r = run_sweep(m, "pool", win, touts)
+    r = run_sweep(m, "pool", win, touts, fixed_order=True)
     say_sweep("phase 14c pool sweep with the exchange modes", r, len(win))
     say(f"phase 14c against 14b (i), the same width: ms/round "
         f"{1e3 * r['wall'] / r['rounds']:.1f} vs "
@@ -2433,7 +2519,527 @@ def other_drivers(dev, phase5_states):
     return lc["K1"], lc["K2"]
 
 
+# --------------------------------------------------------------------
+# the last modules of the port (phase 15): the inv backend, the sharded
+# path, distributed checkpoints and postprocess
+
+PHASE15_AIM_S = 150.0
+INV_N = 485               # phase 15a: Newton systems of the main path
+SHARD_SEED = 15           # phase 15b: run_mc's seed (its pass key 15000)
+SHARD_RANKS = 2           # phase 15b: processes on the one card (gloo)
+SHARD_TIMEOUT_S = 300     # phase 15b: the processes' join deadline
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def invert_work(B, n, N):
+    """(flop, bytes) of inverting an n x n matrix from its LU: LAPACK
+    getri's 4/3 n^3 flop; lu, linv and uinv read once, the [N, N] inverse
+    written once."""
+    return B * 4 * n ** 3 // 3, B * 4 * (2 * N * N + 2 * N * 64)
+
+
+def apply_work(B, n, N):
+    """(flop, bytes) of one inverse apply: the [B, N, N] f32 inverse read
+    once (one FMA an entry), b read and x written."""
+    return B * 2 * N * N, B * 4 * (N * N + 2 * n)
+
+
+def newton_systems(B, n, seed, device):
+    """f64 Newton systems (I - c J) x = b of tests/test_blocklu.py's
+    inv-backend case at [B, n]: J ~ N(0, 1/n), c = 0.02 n / 70 (the JAX
+    test's c J spread at n = 70), error weights 1 + U(0, 1)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    J = t(rng.standard_normal((B, n, n)) / np.sqrt(n))
+    c = t(np.full(B, 0.02 * np.sqrt(n / 70.0)))
+    scale = t(1.0 + rng.uniform(0, 1, (B, n)))
+    b = t(rng.standard_normal((B, n)))
+    return J, c, scale, b
+
+
+def check_inv(dev):
+    """Phase 15a at both main-path shapes: K1 then block_invert, A @ inv(A)
+    against I in f64, the inverse apply against K2, _bsolve on "inv"
+    against "kernel" and against a f64 direct solve (2 refinements, as
+    tests/test_blocklu.py), and the times of block_invert, of one apply
+    beside K2's, with their bounds.  Returns {B: numbers}."""
+    from rac2d_torch.ops import bdf, blocklu, kernels
+    out = {}
+    for B in (RUN_CHUNK, W):
+        n = INV_N
+        A, b = newton_matrices(B, n, 0, dev)
+        fac = kernels.block_lu_factor(A)
+        Ainv = blocklu.block_invert(fac)
+        N = Ainv.shape[-1]
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        err_I = float((torch.matmul(A.double(), Ainv[:, :n, :n].double())
+                       - eye).abs().amax())
+        x_inv = blocklu.inverse_apply(Ainv, b)
+        x_k2 = kernels.block_lu_solve(fac, b)
+        d_x = rel_per_lane(x_inv, x_k2)
+        del A
+        t_inv = [cuda_ms(lambda: blocklu.block_invert(fac), 3)
+                 for _ in range(2)]
+        t_app, t_k2 = [], []
+        for _ in range(2):
+            t_app.append(cuda_ms(lambda: blocklu.inverse_apply(Ainv, b), 50))
+            t_k2.append(cuda_ms(lambda: kernels.block_lu_solve(fac, b), 50))
+        del fac, Ainv
+        torch.cuda.empty_cache()
+        J, c, scale, rhs = newton_systems(B, n, 10, dev)
+        xs = {}
+        for backend in ("kernel", "inv"):
+            f = bdf._bfac(J, c, scale, backend)
+            xs[backend] = bdf._bsolve(J, c, f, rhs, 2, backend)
+            del f
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        ref = torch.linalg.solve(eye[None] - c[:, None, None] * J, rhs)
+        del J
+        torch.cuda.empty_cache()
+        bar = 1e-8 * float(xs["kernel"].abs().max()) + 1e-10
+        d_b = float((xs["inv"] - xs["kernel"]).abs().max())
+        d_ref = {k: float((v - ref).abs().max()) for k, v in xs.items()}
+        bar_ref = 1e-8 * float(ref.abs().max()) + 1e-10
+        bi, bi_by = bound(*invert_work(B, n, N))
+        ba, ba_by = bound(*apply_work(B, n, N))
+        bk2, _ = bound(*k2_work(B, n, N))
+        r = dict(err_I=err_I, d_x=d_x, invert_ms=float(np.mean(t_inv)),
+                 invert_bound_ms=bi, invert_bound_by=bi_by,
+                 apply_ms=float(np.mean(t_app)), apply_bound_ms=ba,
+                 apply_bound_by=ba_by, k2_ms=float(np.mean(t_k2)),
+                 bsolve_diff=d_b)
+        out[B] = r
+        say(f"phase 15a B={B} n={n} N={N}: K1 then block_invert "
+            + "/".join(f"{v:.3f}" for v in t_inv) + f" ms (bound {bi:.3f} "
+            f"ms by {bi_by}: getri's 4/3 n^3 flop); max |A inv(A) - I| "
+            f"{err_I:.3e} (f32 factor, no bar); inverse apply "
+            + "/".join(f"{v:.4f}" for v in t_app) + " ms against K2 "
+            + "/".join(f"{v:.4f}" for v in t_k2) + f" ms (bounds by bytes: "
+            f"the apply {ba:.4f} ms, the [B, N, N] inverse read once, at "
+            f"{ba / r['apply_ms']:.1%}; K2 {bk2:.4f} ms at "
+            f"{bk2 / r['k2_ms']:.1%}); apply vs K2 max rel per lane "
+            f"{d_x:.2e}")
+        say(f"phase 15a B={B}: _bsolve (2 refinements) inv vs kernel max "
+            f"|d| {d_b:.3e} (tol {bar:.3e} = 1e-8 max|x| + 1e-10); vs a "
+            f"f64 direct solve: kernel {d_ref['kernel']:.3e}, inv "
+            f"{d_ref['inv']:.3e} (tol {bar_ref:.3e})")
+        if not (d_b <= bar and max(d_ref.values()) <= bar_ref):
+            raise Fail(f"phase 15a: the inv backend's solve at B={B}")
+    return out
+
+
+INV_CELLS = 64            # phase 15a: cells of the inv-backend pool sweeps
+INV_T_MAX = 1e-6          # yr, their t_max (a short sweep)
+
+
+def inv_sweep(m, cells, snap, touts):
+    """Phase 15a's short pool sweeps: INV_CELLS of phase 14b's cells in
+    one window from its snapshot to the output times touts (INV_T_MAX),
+    with RAC2D_LU_BACKEND (the user's switch) "kernel", "inv", "kernel" in
+    turns: rounds, ms/round (kernel's the mean of its two), K1/K2
+    launches; the same failed cells and key species within phase 6's 5%
+    (Tgas 2%)."""
+    import os
+    win = cells[::len(cells) // INV_CELLS][:INV_CELLS]
+    X0, T0 = snap
+    out = {}
+    old = os.environ.get("RAC2D_LU_BACKEND")
+    try:
+        for i, backend in enumerate(("kernel", "inv", "kernel")):
+            os.environ["RAC2D_LU_BACKEND"] = backend
+            m.X, m.Tgas = X0.copy(), T0.copy()
+            r = run_sweep(m, "pool", win, touts)
+            say_sweep(f"phase 15a pool sweep on {backend!r} ({i + 1}/3)", r,
+                      len(win))
+            if backend in out:
+                r["wall"] = 0.5 * (r["wall"] + out[backend]["wall"])
+            out[backend] = r
+    finally:
+        if old is None:
+            os.environ.pop("RAC2D_LU_BACKEND", None)
+        else:
+            os.environ["RAC2D_LU_BACKEND"] = old
+    a, b = out["inv"], out["kernel"]
+    ki = m.net.key_species_idx
+    clean = ~a["failed"] & ~b["failed"]
+    xa, xb = a["X"][ki][:, clean], b["X"][ki][:, clean]
+    big = np.abs(xb) > 1e-12
+    rel = float((np.abs(xa - xb)[big] / np.abs(xb[big])).max())
+    dT = float(np.abs(a["Tgas"][clean] / b["Tgas"][clean] - 1).max())
+    ms = {k: 1e3 * v["wall"] / max(v["rounds"], 1) for k, v in out.items()}
+    say(f"phase 15a inv against kernel: {ms['inv']:.1f} vs "
+        f"{ms['kernel']:.1f} ms/round ({ms['inv'] / ms['kernel']:.2f}x); "
+        f"failed {int(a['failed'].sum())} vs {int(b['failed'].sum())}; "
+        f"key species worst rel diff {rel:.3e} (tol 5e-2), Tgas "
+        f"{dT:.3e} (tol 2e-2)")
+    if (a["failed"] != b["failed"]).any() or not (rel < 0.05 and dT < 0.02) \
+            or a["K1"] <= 0:
+        raise Fail("phase 15a: the pool sweep on inv")
+    return out
+
+
+def tallies_host(tall):
+    return {f: getattr(tall, f).double().cpu().numpy() for f in tall._fields}
+
+
+def own_pass(m, key, rank, n_ranks, cells, nph):
+    """This rank's block of the pass's pool of nph packets walked alone
+    through `cells` with its own generator (no collective), in the units
+    of DiskModel.mc_pass."""
+    from rac2d_torch.models import driver
+    from rac2d_torch.ops import mcrt
+    from rac2d_torch.parallel import mesh
+    lam, en, scale = m.packet_pool(nph)
+    pad = -len(lam) % n_ranks
+    lam = np.concatenate([lam, np.full(pad, lam[-1])])
+    en = np.concatenate([en, np.zeros(pad)])
+    per = len(lam) // n_ranks
+    model = mcrt.McModel(tab=m.tab, gi=m.gi, cells=cells,
+                         star_mass=m.cfg.star_mass)
+    gen = torch.Generator(device=m.device).manual_seed(
+        mesh.rank_seed(key, rank, n_ranks))
+    tall = mcrt.McTallies.zeros(m.grid.n_cells, len(m.tab.lam), m.n_dust, 5,
+                                device=m.device)
+    _, tall, fates = mcrt.mc_pass_streamed(
+        model, gen, lam[rank * per:(rank + 1) * per],
+        en[rank * per:(rank + 1) * per], 0.0, m.cfg.maxw, tall,
+        **m.pass_kw())
+    out = tallies_host(tall)
+    for f in driver.ENERGY_TALLIES:
+        out[f] = out[f] * scale
+    return out, fates
+
+
+def sum_check(total, parts, tag):
+    """The sharded pass's tallies against the sum of the ranks' own
+    passes: the largest |d| over a channel's largest entry."""
+    worst = {}
+    for f, v in total.items():
+        want = sum(p[f] for p in parts)
+        worst[f] = float(np.abs(v - want).max()
+                         / max(np.abs(want).max(), 1e-300))
+    w = max(worst.values())
+    say(f"{tag}: sharded tallies vs the sum of the ranks' own passes, max "
+        f"|d| / channel max {w:.2e} (tol 1e-5; worst "
+        f"{max(worst, key=worst.get)})")
+    return w
+
+
+def sweep_diff(X, Tg, ref, tag):
+    """The sweep's X and Tgas of the cells against phase 14b's chunked
+    sweep `ref` (both in a fixed summation order): entries beyond rtol
+    1e-8 (atol 1e-25), worst relative difference."""
+    a = np.concatenate([X.ravel(), Tg])
+    b = np.concatenate([ref["X"].ravel(), ref["Tgas"]])
+    over = np.abs(a - b) > 1e-8 * np.abs(b) + 1e-25
+    big = np.abs(b) > 1e-25
+    rel = float((np.abs(a - b)[big] / np.abs(b[big])).max())
+    say(f"{tag} against phase 14b's: worst rel diff {rel:.3e}, "
+        f"{int(over.sum())} of {len(a)} entries beyond rtol 1e-8 (atol "
+        f"1e-25)")
+    return int(over.sum()), rel
+
+
+def shard_one_rank(m, cells, snap, ref, tmp):
+    """Phase 15b (i) and 15c in a process group of one rank (NCCL,
+    cuda:0) with the model's sharded branches switched on (m.group) and
+    shard_chemistry set, through the model's entry points: chemistry_step
+    on phase 14b's cells alone (the grid's other cells inactive for it)
+    from its snapshot, in a Deterministic block: the chunked sweep with
+    its chunks through sharded_chemistry_solve, X, Tgas and the failed
+    cells broadcast after it; then run_mc(n_passes=1): the pass sharded,
+    its fields broadcast.  K1-K4 counted over both.  The sweep is held to
+    phase 14b's chunked sweep `ref` at 1e-8 with the same failed cells,
+    the pass to this rank's own pass within 1e-5 of each channel's
+    largest entry with the fates equal; then save_state_dist /
+    load_state_dist of the model, bit-equal (15c)."""
+    import torch.distributed as dist
+    from rac2d_torch import checkpoint
+    from rac2d_torch.ops import kernels
+    from rac2d_torch.parallel import mesh
+    mesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    cfg, grid = m.cfg, m.grid
+    using, shard = grid.using, cfg.shard_chemistry
+    try:
+        say(f"phase 15b (i) one rank: backend {dist.get_backend()}, "
+            f"device {mesh.collective_device()}")
+        m.group = dist.group.WORLD
+        cfg.shard_chemistry = True
+        X0, T0 = snap
+        m.X, m.Tgas = X0.copy(), T0.copy()
+        q0 = m.quality.copy()
+        grid.using = np.zeros_like(using)
+        grid.using[cells] = True
+        kernels.reset_launches()
+        t0 = time.time()
+        with Deterministic():
+            m.chemistry_step(iiter=2)
+            torch.cuda.synchronize()
+        t_sw = time.time() - t0
+        grid.using = using
+        failed = m.quality[cells] - q0[cells] >= 512
+        cells_mc = m.mc_cells()
+        t0 = time.time()
+        m.run_mc(n_passes=1, seed=SHARD_SEED)
+        t_mc = time.time() - t0
+        launches = kernels.launch_counts()
+        st = m.mc_stats[-1]
+        say(f"phase 15b (i) chemistry_step of {len(cells)} cells (the "
+            f"sharded chunked sweep): {t_sw:.2f} s, {m.chunk_rounds} BDF "
+            f"rounds, {int(failed.sum())} failed; run_mc(n_passes=1): "
+            f"{st['packets']} packets in {t_mc:.2f} s, {st['chunks']} "
+            f"chunks, fates {m.mc_counts}; launches over both {launches}")
+        if min(launches.values()) <= 0:
+            raise Fail(f"phase 15b: the sharded path launched {launches}")
+        n_over, rel = sweep_diff(m.X[:, cells], m.Tgas[cells], ref,
+                                 "phase 15b (i) sharded chunked sweep")
+        if n_over or not np.array_equal(failed, ref["failed"]):
+            raise Fail("phase 15b: the one-rank sharded sweep differs from "
+                       "the one-process sweep")
+        own, own_fates = own_pass(m, SHARD_SEED * 1000, 0, 1, cells_mc,
+                                  MC_NPH)
+        w = sum_check(tallies_host(m.tallies), [own], "phase 15b (i)")
+        if not (w <= 1e-5 and own_fates == m.mc_counts):
+            raise Fail("phase 15b: the one-rank pass is not its own pass")
+        # 15c: the distributed checkpoint of the model, in this group
+        t0 = time.time()
+        keys = ("X", "Tgas", "Tdust", "Tdusts", "quality")
+        saved = {k: np.copy(getattr(m, k)) for k in keys}
+        saved.update(n0=m.grid.n0.copy(), using=m.grid.using.copy(),
+                     rho_dust=m.rho_dust.copy())
+        path = str(tmp / "dcp")
+        checkpoint.save_state_dist(path, m, iiter=1)
+        for k in keys:
+            setattr(m, k, np.zeros_like(saved[k]))
+        it = checkpoint.load_state_dist(path, m)
+        back = {k: getattr(m, k) for k in keys}
+        back.update(n0=m.grid.n0, using=m.grid.using, rho_dust=m.rho_dust)
+        same = all(np.array_equal(back[k], v) and back[k].dtype == v.dtype
+                   for k, v in saved.items())
+        say(f"phase 15c save_state_dist / load_state_dist of phase 11's "
+            f"model ({len(saved)} arrays): bit-equal {same}, iiter {it}; "
+            f"{time.time() - t0:.2f} s")
+        if not same or it != 1:
+            raise Fail("phase 15c: the distributed checkpoint round trip")
+        return launches, dict(mc_s=t_mc, sweep_s=t_sw,
+                              rounds=m.chunk_rounds, mc_sum_err=w,
+                              sweep_rel=rel)
+    finally:
+        grid.using, cfg.shard_chemistry = using, shard
+        m.group = None
+        dist.destroy_process_group()
+
+
+def shard_worker(rank, n_ranks, port, tmp):
+    """A process of phase 15b (ii): a gloo group of n_ranks on the one
+    card (the collectives on host copies: NCCL refuses two ranks on one
+    device), phase 11's model rebuilt from its configuration and the
+    state phase 15 saved, its run_mc(n_passes=1) (the pass sharded over
+    the ranks, the fields broadcast), then this rank's own pass of its
+    block."""
+    import pickle
+    import torch.distributed as dist
+    from rac2d_torch.ops import kernels
+    from rac2d_torch.parallel import mesh
+    t_start = time.time()
+    mesh.init_distributed(f"127.0.0.1:{port}", n_ranks, rank, device="cpu",
+                          timeout_s=SHARD_TIMEOUT_S)
+    try:
+        state = torch.load(tmp / "state.pt", weights_only=False)
+        m = bench_disk(torch.device(state["device"]), **state["chem"])
+        t_prep = time.time() - t_start
+        for k in ("X", "Tgas", "Tdust", "Tdusts", "quality"):
+            setattr(m, k, state[k])
+        cells_mc = m.mc_cells()
+        kernels.reset_launches()
+        t0 = time.time()
+        m.run_mc(n_passes=1, seed=SHARD_SEED)
+        torch.cuda.synchronize()
+        t_mc = time.time() - t0
+        launches = kernels.launch_counts()
+        own, own_fates = own_pass(m, SHARD_SEED * 1000, rank, n_ranks,
+                                  cells_mc, MC_NPH)
+        res = dict(rank=rank, world=m.world, prep_s=t_prep, mc_s=t_mc,
+                   launches=launches, fates=m.mc_counts, own=own,
+                   own_fates=own_fates, chunks=m.mc_stats[-1]["chunks"],
+                   tallies=tallies_host(m.tallies), Tdust=m.Tdust)
+        with open(tmp / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_processes(m, tmp):
+    """Phase 15b (ii): SHARD_RANKS processes on the one card
+    (shard_worker), joined with a deadline: their summed tallies held to
+    the sum of their own passes (1e-5, fates summed exactly), the same
+    tallies and Tdust on every rank, K3/K4 launched on each."""
+    import pickle
+    import torch.multiprocessing as mp
+    torch.save(dict(
+        chem={k: getattr(m.cfg, k) for k in (
+            "n_iter", "evolT", "chem_stream", "t_max", "chem_chunk",
+            "chunk_wall_s")},
+        X=m.X, Tgas=m.Tgas, Tdust=m.Tdust, Tdusts=m.Tdusts,
+        quality=m.quality, device=str(m.device)), tmp / "state.pt")
+    t0 = time.time()
+    ctx = mp.spawn(shard_worker, args=(SHARD_RANKS, free_port(), tmp),
+                   nprocs=SHARD_RANKS, join=False)
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() - t0 > SHARD_TIMEOUT_S:
+                raise Fail(f"phase 15b: {SHARD_RANKS} processes still "
+                           f"running after {SHARD_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        raise Fail(f"phase 15b: a process failed: {e}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.time() - t0
+    rs = []
+    for r in range(SHARD_RANKS):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            rs.append(pickle.load(f))
+    r0 = rs[0]
+    say(f"phase 15b (ii) {SHARD_RANKS} processes on the card (gloo, "
+        f"collectives on host copies): {wall:.1f} s in all; per rank "
+        + "; ".join(f"{r['rank']}: prepare {r['prep_s']:.1f} s, run_mc "
+                    f"{r['mc_s']:.2f} s ({r['chunks']} chunks), launches "
+                    f"{r['launches']}" for r in rs))
+    fates = {k: sum(r["own_fates"][k] for r in rs) for k in r0["fates"]}
+    w = sum_check(r0["tallies"], [r["own"] for r in rs], "phase 15b (ii)")
+    same = all(np.array_equal(r["tallies"][f], r0["tallies"][f])
+               for r in rs for f in r0["tallies"]) \
+        and all(np.array_equal(r["Tdust"], r0["Tdust"]) for r in rs)
+    say(f"phase 15b (ii) fates: sharded {r0['fates']}, sum of the own "
+        f"passes {fates}; every rank the same tallies and Tdust {same}")
+    if not (w <= 1e-5 and fates == r0["fates"] and same
+            and all(r["fates"] == r0["fates"] for r in rs)):
+        raise Fail("phase 15b: the sharded pass is not the sum of the "
+                   "ranks' own passes on every rank")
+    if any(min(r["launches"]["K3"], r["launches"]["K4"]) <= 0 for r in rs):
+        raise Fail("phase 15b: a process launched no K3/K4")
+    return [r["launches"] for r in rs], dict(
+        wall_s=wall, mc_s=[r["mc_s"] for r in rs], mc_sum_err=w)
+
+
+def check_postprocess(keep):
+    """Phase 15d: rac2d_torch.postprocess on phase 12c's iteration tables
+    and FITS cubes: radial_profile and column_density of each table,
+    moment maps, pv_cut and SpecLine of each line cube, the continuum
+    cube's moment 0: all finite and shaped as their inputs."""
+    from rac2d_torch import postprocess as pp
+    tabs = sorted(keep.glob("iter_*.npz"))
+    lines = sorted(keep.glob("line_*.fits"))
+    conts = sorted(keep.glob("cont_*.fits"))
+    if not (tabs and lines and conts):
+        raise Fail(f"phase 15d: phase 12c's outputs missing in {keep}")
+    ok = True
+    for p in tabs:
+        t = pp.load_iter(p)
+        r, v = pp.radial_profile(t, t["n_gas"], z_over_r_max=1e3)
+        rs, N = pp.column_density(t, "CO")
+        rc, H = pp.scale_height(t)
+        good = (len(r) > 0 and np.isfinite(v).all() and len(rs) > 0
+                and np.isfinite(N).all() and (N > 0).all()
+                and np.isfinite(H).all())
+        ok &= good
+        say(f"phase 15d {p.name}: radial profile {len(r)} cells, CO columns "
+            f"{len(rs)} ({N.min():.3e}..{N.max():.3e} cm^-2), scale "
+            f"heights {len(rc)}; finite {good}")
+    for p in lines:
+        cube, freqs, hdr = pp.load_cube(p)
+        nf, ny, nx = cube.shape
+        mom0, mom1 = pp.moment_maps(cube, freqs,
+                                    restfreq=float(hdr.get("F0", 0)) or None)
+        pv = pp.pv_cut(cube)
+        sl = pp.SpecLine(p)
+        good = (mom0.shape == (ny, nx) and mom1.shape == (ny, nx)
+                and pv.shape == (nf, nx) and np.isfinite(mom0).all()
+                and np.isfinite(mom1).all() and np.isfinite(pv).all()
+                and sl.spec is not None and len(sl.spec) == nf
+                and np.isfinite(sl.spec).all()
+                and np.isfinite(sl.integrated_flux()))
+        ok &= good
+        say(f"phase 15d {p.name}: cube {cube.shape}, mom0/mom1 "
+            f"{mom0.shape}, pv {pv.shape}, SpecLine {sl.molname} "
+            f"{sl.qnum}, {len(sl.spec)} channels, integrated flux "
+            f"{sl.integrated_flux():.3e} W/m^2; finite and shaped {good}")
+    for p in conts:
+        img, freqs, hdr = pp.load_cube(p)
+        sm = pp.convolve_beam(img.reshape(-1, *img.shape[-2:])[0], 2.0)
+        good = np.isfinite(sm).all() and sm.shape == img.shape[-2:]
+        ok &= bool(good)
+        say(f"phase 15d {p.name}: image {img.shape}, beam-convolved "
+            f"{sm.shape}; finite and shaped {good}")
+    if not ok:
+        raise Fail("phase 15d: postprocess on phase 12c's outputs")
+
+
+def last_modules(dev, m, cells, snap, chunked, keep):
+    """Phase 15: (a) the inv backend, (b) the sharded path on one rank
+    and on SHARD_RANKS processes, (c) the distributed checkpoint, (d)
+    postprocess.  Returns (the inv numbers, the launches of (b) (i), its
+    numbers, the launches of (b) (ii)'s ranks, their numbers)."""
+    import pathlib
+    import shutil
+    import tempfile
+    from rac2d_torch.ops import bdf
+    t_ph = time.time()
+    walls = {}
+    torch.cuda.empty_cache()
+    # phase 14b's sweep fields (columns and shielding from its snapshot)
+    # stay in place for 15a's sweeps
+    cfg = m.cfg
+    t0 = time.time()
+    inv_sweep(m, cells, snap, bdf.log_output_times(
+        cfg.dt_first, INV_T_MAX, cfg.ratio_tstep))
+    walls["15a sweeps"] = time.time() - t0
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="rac2d_phase15_"))
+    try:
+        t0 = time.time()
+        l1, n1 = shard_one_rank(m, cells, snap, chunked, tmp)
+        walls["15b (i) + 15c"] = time.time() - t0
+        t0 = time.time()
+        l2, n2 = shard_processes(m, tmp)
+        walls["15b (ii)"] = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # last: the inverse at full width (its f64 Newton systems take 4 GB)
+    t0 = time.time()
+    inv = check_inv(dev)
+    torch.cuda.empty_cache()
+    walls["15a inverse"] = time.time() - t0
+    t0 = time.time()
+    check_postprocess(keep)
+    walls["15d"] = time.time() - t0
+    say(f"phase 15 done: {time.time() - t_ph:.1f} s (aim <= "
+        f"{PHASE15_AIM_S:g} s); " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items()))
+    return inv, l1, n1, l2, n2
+
+
 def main():
+    import pathlib
+    import shutil
+    import tempfile
+    keep = pathlib.Path(tempfile.mkdtemp(prefix="rac2d_phase12c_"))
+    try:
+        return _main(keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
+def _main(keep):
     t_all = time.time()
     # ---- 1. the card ----
     if not torch.cuda.is_available():
@@ -2501,7 +3107,7 @@ def main():
         times = check_imaging(m, dev)
         img_launches = kernels.launch_counts()
         torch.cuda.empty_cache()
-        walls, cli_launches, cli_kern = check_cli(dev)
+        walls, cli_launches, cli_kern = check_cli(dev, keep)
         t12 = time.time() - t12
         img = ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
         cli = ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
@@ -2525,7 +3131,6 @@ def main():
         t0 = time.time()
         exch_launches = exchange_window(m, dev, pool, cells, snap)
         walls14["14c"] = time.time() - t0
-        del m
         torch.cuda.empty_cache()
         t0 = time.time()
         other_drivers(dev, phase5_states)
@@ -2533,6 +3138,13 @@ def main():
         say(f"phase 14 done: {time.time() - t14:.1f} s (aim <= "
             f"{PHASE14_AIM_S:g} s); " + ", ".join(
                 f"{k} {v:.1f} s" for k, v in walls14.items()))
+        # ---- 15. the last modules: inv, sharding, DCP, postprocess ----
+        inv, sh1, sh1_n, sh2, sh2_n = last_modules(dev, m, cells, snap,
+                                                   chunked, keep)
+        del m
+        torch.cuda.empty_cache()
+        sharded = {"launches_sharded": sh1, "sharded": sh1_n,
+                   "sharded_2proc": sh2_n}
         for row, key, nx in zip(rows, ("K1", "K2"), exch_launches):
             row["launches"] = run_launches[key]
             row["launches_cli"] = cli_launches[key]
@@ -2541,6 +3153,7 @@ def main():
             row["launches_exchange"] = nx
             row["launches_cli_chunked"] = cli14_launches[key]
             row["cli"] = cli_kern[key]
+            row["launches_sharded"] = sh1[key]
         res = {"mc_walk": (k3, mc_launches[0], run_launches["K3"],
                            cli_launches["K3"], cli_kern["K3"], "K3"),
                "fold_terminal": (k4, mc_launches[1], run_launches["K4"],
@@ -2561,7 +3174,17 @@ def main():
                          **({"bound_all_fields_ms": r["bound_all_fields_ms"]}
                             if "bound_all_fields_ms" in r else {}),
                          "cli": cli, "e2e": e2e_kern[key],
-                         "e2e_merged": e2e_kern["merged"][key]})
+                         "e2e_merged": e2e_kern["merged"][key],
+                         "launches_sharded": sh1[key],
+                         "launches_sharded_2proc": [r[key] for r in sh2]})
+        # the inv backend beside K1 (block_invert of its factor) and K2
+        # (the apply that takes K2's place): torch matmuls, not kernels
+        for row, what in zip(rows[:2], ("invert", "apply")):
+            row["inv_" + what] = {
+                str(B): {k.replace(what + "_", ""): v for k, v in r.items()
+                         if k.startswith(what + "_")}
+                for B, r in inv.items()}
+        say("phase 15 sharded path: " + json.dumps(sharded))
     except Fail as e:
         say(f"FAIL {e}")
         return 1

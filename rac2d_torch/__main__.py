@@ -9,12 +9,20 @@ continuum and/or line transfer stages (reference src/main.f90:48-105).
 Stages can be skipped/resumed via the [output] section and a checkpoint
 file, mirroring the reference's use_backup_* dump/restore flow
 (src/data_dump.f90, src/disk.f90:123-131).
+
+Several cards: ``torchrun --nproc-per-node N -m rac2d_torch model.toml``
+starts one process per card (WORLD_SIZE > 1): each joins the process
+group (NCCL; gloo with ``--device cpu``) and runs the model on its card,
+cuda:LOCAL_RANK, with the MC passes and the chemistry chunks sharded over
+the ranks (``parallel.mesh``); rank 0 alone writes the log, the tables,
+the checkpoint, the SED, the analysis and the cubes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import sys
 import time
@@ -46,7 +54,19 @@ def parser():
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # started by torchrun: one process per card
+        from .parallel import mesh
+        mesh.init_distributed(device=args.device)
+        try:
+            return _main(args)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return _main(args)
 
+
+def _main(args):
     from . import checkpoint, config as cfgmod
     from .models import output as outmod
     from .ops import kernels
@@ -54,19 +74,20 @@ def main(argv=None):
     cfg = cfgmod.load_config(args.config)
     extras = cfgmod.load_extras(args.config)
     outdir = pathlib.Path(args.out or extras.get("dir", "./rac2d_out"))
-    outdir.mkdir(parents=True, exist_ok=True)
-
-    # config echo + streaming log from the very start (reference echoes
-    # the config into the log before running, configure.f90:64-74)
-    with open(args.config) as src, open(outdir / "config_used.toml",
-                                        "w") as dst:
-        dst.write(src.read())
 
     from .models import driver
     m = driver.DiskModel(cfg, device=args.device)
-    m.log_path = outdir / "log.txt"
-    with open(m.log_path, "w"):
-        pass
+    if m.rank == 0:
+        outdir.mkdir(parents=True, exist_ok=True)
+        # config echo + streaming log from the very start (reference
+        # echoes the config into the log before running,
+        # configure.f90:64-74)
+        with open(args.config) as src, open(outdir / "config_used.toml",
+                                            "w") as dst:
+            dst.write(src.read())
+        m.log_path = outdir / "log.txt"
+        with open(m.log_path, "w"):
+            pass
     t0 = time.time()
     m.prepare()
 
@@ -77,6 +98,8 @@ def main(argv=None):
 
     n_iter = args.iters if args.iters is not None else cfg.n_iter
     if args.save_only_structure:
+        if m.rank:
+            return 0
         outmod.save_iter_npz(outdir / "iter_final.npz", m, start_iter)
         checkpoint.save_state(outdir / "checkpoint.npz", m, start_iter)
         m.say(f"structure saved (no compute) in {time.time() - t0:.0f}s")
@@ -92,6 +115,9 @@ def main(argv=None):
     # each wrapper computes its plain version)
     m.say("kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in kernels.launch_counts().items()))
+    if m.rank:
+        # the state is rank 0's on every rank; rank 0 writes the outputs
+        return 0
 
     # --- persist state + per-cell tables + SED -------------------------
     outmod.save_iter_npz(outdir / "iter_final.npz", m, n_iter)

@@ -10,14 +10,20 @@ replaces the reference's check_consistency_of_loaded_data_phy
 (data_dump.f90:763).  A checkpoint of another grid (an AMR-refined one)
 is adopted with the grid it embeds.
 
-Not ported: the JAX package's orbax checkpoints for multi-host state.
+For several processes, ``save_state_dist``/``load_state_dist`` take the
+place of the JAX package's orbax pair (``save_state_orbax``/
+``load_state_orbax``): the same keys, written with
+``torch.distributed.checkpoint`` (which ships with torch) by every rank of
+the process group together, or by one process alone.
 """
 
 from __future__ import annotations
 
 import hashlib
+import pathlib
 
 import numpy as np
+import torch
 
 from .models.output import host
 
@@ -118,3 +124,62 @@ def load_state(path, model, check_consistency=True, restore_grid=True):
         model.Tdusts = d["Tdusts"]
         model.quality = d["quality"]
         return int(d["iiter"])
+
+
+def _dist_state(model, iiter):
+    """The state of save_state_dist: the orbax pair's keys and the grid's
+    `using` (load_state_dist restores the densities as load_state does),
+    as CPU tensors."""
+    a = dict(grid_hash=np.frombuffer(bytes.fromhex(_grid_hash(model.grid)),
+                                     dtype=np.uint8),
+             iiter=np.array(iiter, dtype=np.int64),
+             X=model.X, Tgas=model.Tgas, Tdust=model.Tdust,
+             Tdusts=model.Tdusts, quality=model.quality, n0=model.grid.n0,
+             rho_dust=model.rho_dust, using=model.grid.using)
+    return {k: torch.from_numpy(np.array(v)) for k, v in a.items()}
+
+
+def save_state_dist(path, model, iiter=0):
+    """Write the state dict of save_state_orbax (grid_hash, iiter, X,
+    Tgas, Tdust, Tdusts, quality, n0, rho_dust) and the grid's `using`
+    into the directory `path` with torch.distributed.checkpoint.  In a
+    process group every rank calls it with the same (replicated) state,
+    and each tensor is written once; without one, the process writes
+    alone."""
+    import torch.distributed.checkpoint as dcp
+    dcp.save(_dist_state(model, iiter),
+             checkpoint_id=str(pathlib.Path(path).resolve()))
+
+
+def load_state_dist(path, model, check_consistency=True):
+    """Restore a save_state_dist directory into a prepared DiskModel, as
+    load_state restores a checkpoint of the same grid (X, Tgas, Tdust,
+    Tdusts, quality, and the grid's n0 and using with rho_dust, rebuilding
+    the derived state where they differ); returns the iteration it was
+    saved at.  A checkpoint of another grid raises ValueError (as
+    load_state_orbax; a refined grid is restored from save_state's npz)."""
+    import torch.distributed.checkpoint as dcp
+    path = str(pathlib.Path(path).resolve())
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    want = _grid_hash(model.grid)
+    head = {"grid_hash": torch.zeros(tuple(meta["grid_hash"].size),
+                                     dtype=torch.uint8)}
+    dcp.load(head, checkpoint_id=path)
+    got = bytes(head["grid_hash"].numpy().tobytes()).hex()
+    if got != want and check_consistency:
+        raise ValueError(f"checkpoint grid hash {got} != current grid "
+                         f"{want}; refusing to restore onto a different grid")
+    sd = {k: torch.empty(tuple(meta[k].size), dtype=t.dtype)
+          for k, t in _dist_state(model, 0).items() if k != "grid_hash"}
+    dcp.load(sd, checkpoint_id=path)
+    d = {k: v.numpy() for k, v in sd.items()}
+    if not (np.array_equal(d["n0"], model.grid.n0)
+            and np.array_equal(d["using"], model.grid.using)
+            and np.array_equal(d["rho_dust"], model.rho_dust)):
+        model.grid.n0 = d["n0"]
+        model.grid.using = d["using"]
+        model.rho_dust = d["rho_dust"]
+        model._derive_cell_state()
+    for k in ("X", "Tgas", "Tdust", "Tdusts", "quality"):
+        setattr(model, k, d[k])
+    return int(d["iiter"])

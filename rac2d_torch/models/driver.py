@@ -21,8 +21,17 @@ gas-dust energy-exchange modes of ``cfg.hc``; ``chemistry_step`` with its
 convergence bookkeeping, the hydrostatic vertical structure
 (``vertical_bootstrap``, ``vertical_adjust``), AMR refine/merge
 (``amr_step``, ``adopt_grid``), ``run`` with its per-iteration outputs
-(``save_dir``), and ``sed``.  Not ported yet, raising
-``NotImplementedError`` when asked for: the sharded multi-device pass.
+(``save_dir``), and ``sed``.
+
+Several cards: one process per card (``torchrun``), each holding the
+whole host state, in a process group (``parallel.mesh``).  With more
+than one rank, ``run_mc`` shards each pass's packets over the ranks
+(``mesh.mc_pass_sharded``) and, with ``shard_chemistry``, the chemistry
+goes through the chunked sweep with each chunk's lanes sharded over the
+ranks (``mesh.sharded_chemistry_solve``), as in the JAX package.  After
+each stage the host state (X, Tgas, Tdust, Tdusts, quality) and the
+fields are rank 0's on every rank; only rank 0 prints and writes files.
+A device list still raises: the port runs one process per card.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from ..ops import bdf as bdfmod
 from ..ops import (columns, fields, geometry, mcrt, odesys, optics,
                    thermal)
 from ..ops.rates import CellEnv
+from ..parallel import mesh
 from . import density, star as starmod
 from .grid import Grid, GridConfig, make_grid
 
@@ -55,6 +65,12 @@ from .grid import Grid, GridConfig, make_grid
 # packages; a stiff lane's can, through the window's shared Newton
 # refresh (ROADMAP.md §3).
 POOL_ROUNDS_PER_CALL = 32
+
+
+# the tally channels a MC pass rescales from O(1) packet energies to
+# physical units (DiskModel.mc_pass)
+ENERGY_TALLIES = ("flux", "dir_flux", "en_gain", "en_gain_abso",
+                  "ab_en_water", "collector", "collector_img", "mrw_path")
 
 
 @dataclasses.dataclass
@@ -151,8 +167,9 @@ class DiskConfig:
     # dust albedo entering the CR-induced-photon rate correction
     # (reference template_configure.dat:233)
     cell_omega_albedo: float = 0.5
-    # the JAX package shards its chemistry over several devices with it;
-    # on one device, as here, it has no effect there either
+    # with several ranks, the chemistry goes through the chunked sweep
+    # with each chunk's lanes sharded over them (the JAX package's switch
+    # for several devices); on one rank it has no effect
     shard_chemistry: bool = True
 
 
@@ -160,16 +177,27 @@ class DiskModel:
     """Holds the prepared state on one device; run() drives the
     fixed-point loop.  The evolving per-cell state (X, Tgas, Tdust,
     Tdusts, quality) lives on the host as numpy arrays; tallies, fields,
-    path matrices, columns and environments live on the device."""
+    path matrices, columns and environments live on the device.
+
+    In a process group of more than one rank (parallel.mesh.
+    init_distributed, as torchrun starts one process per card) the model
+    takes the group (``group``; None in one process), and "cuda" means
+    this rank's card, cuda:LOCAL_RANK.  The sharded branches follow
+    ``group``: set to a group of one rank, they run there too (the chip
+    check measures them so on one card)."""
 
     def __init__(self, cfg: DiskConfig, device="cuda"):
         if isinstance(device, (list, tuple)):
             if len(device) > 1:
                 raise NotImplementedError(
-                    "the sharded multi-device MC pass is not ported yet")
+                    "a device list: the port runs one process per card, "
+                    "`torchrun --nproc-per-node N -m rac2d_torch "
+                    "model.toml` (each process a DiskModel on its card)")
             device = device[0]
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.group = mesh.group_of()
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        self.device = mesh.rank_device(device)
         # a device that cannot hold tensors (the default "cuda" on a
         # machine without one) fails here, with torch's own error
         torch.empty(0, device=self.device)
@@ -183,6 +211,8 @@ class DiskModel:
 
     def say(self, msg):
         self.log.append(msg)
+        if self.rank:
+            return
         print(msg, flush=True)
         if self.log_path is not None:
             with open(self.log_path, "a") as f:
@@ -476,42 +506,57 @@ class DiskModel:
         en_scale = float(np.max(en_pk)) or 1.0
         return lam_pk, np.asarray(en_pk) / en_scale, en_scale
 
+    def pass_kw(self, max_batch=None, max_steps=100_000, walk="kernel"):
+        """The keyword arguments of mcrt.mc_pass_streamed for this model's
+        MC configuration."""
+        mc = self.mc_cfg
+        return dict(
+            max_batch=max_batch or mc.max_batch, max_steps=max_steps,
+            steps_per_call=mc.steps_per_call, n_quantile=mc.n_quantile,
+            nmax_encounter=mc.nmax_encounter, use_mrw=mc.use_mrw,
+            mrw_gamma=mc.mrw_gamma, mrw_lam_min=mc.mrw_lam_min,
+            save_dir=mc.save_dir_flux,
+            save_counts=mc.save_counts or mc.do_fill_blank, walk=walk)
+
     def mc_pass(self, key_seed, nph=None, cells=None, walk="kernel",
                 max_batch=None, max_steps=100_000):
         """One streamed MC pass with the model's current state (or the
         given cells), at most max_steps walk steps.  Leaves the model
-        unchanged.  Returns (tallies in float64 physical units, fates,
-        stats)."""
+        unchanged.  With several ranks the pass is sharded: the pool is
+        padded with zero-energy packets to a multiple of the ranks (as the
+        JAX package pads it, its driver.py:451-456), each rank walks its
+        block with its own generator, and the tallies and fates are
+        summed over the ranks (mesh.mc_pass_sharded).  Returns (tallies
+        in float64 physical units, fates, stats)."""
         from ..ops import kernels
         cfg = self.cfg
-        mc = self.mc_cfg
         t0 = time.time()
         lam_pk, en_norm, en_scale = self.packet_pool(nph)
         if cells is None:
             cells = self.mc_cells()
         model = mcrt.McModel(tab=self.tab, gi=self.gi, cells=cells,
                              star_mass=cfg.star_mass)
-        gen = torch.Generator(device=self.device).manual_seed(key_seed)
         tall = mcrt.McTallies.zeros(self.grid.n_cells, len(self.tab.lam),
                                     self.n_dust, 5, device=self.device)
         l0 = (kernels.mc_walk.launches, kernels.fold_terminal.launches)
         stats = {"packets": len(lam_pk), "cells": cells}
-        _, tall, fates = mcrt.mc_pass_streamed(
-            model, gen, lam_pk, en_norm, 0.0, cfg.maxw, tall,
-            max_batch=max_batch or mc.max_batch, max_steps=max_steps,
-            steps_per_call=mc.steps_per_call, n_quantile=mc.n_quantile,
-            nmax_encounter=mc.nmax_encounter, use_mrw=mc.use_mrw,
-            mrw_gamma=mc.mrw_gamma, mrw_lam_min=mc.mrw_lam_min,
-            save_dir=mc.save_dir_flux,
-            save_counts=mc.save_counts or mc.do_fill_blank,
-            walk=walk, stats=stats)
+        kw = dict(self.pass_kw(max_batch, max_steps, walk), stats=stats)
+        if self.group is not None:
+            pad = -len(lam_pk) % self.world
+            lam_pk = np.concatenate([lam_pk, np.full(pad, lam_pk[-1])])
+            en_norm = np.concatenate([en_norm, np.zeros(pad)])
+            _, tall, fates = mesh.mc_pass_sharded(
+                model, key_seed, lam_pk, en_norm, 0.0, cfg.maxw, tall,
+                group=self.group, **kw)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(key_seed)
+            _, tall, fates = mcrt.mc_pass_streamed(
+                model, gen, lam_pk, en_norm, 0.0, cfg.maxw, tall, **kw)
         # scale the energy tallies back to physical units, in f64
         with record_function("mc.rescale"):
             tall = tall._replace(**{
                 f: getattr(tall, f).to(torch.float64) * en_scale
-                for f in ("flux", "dir_flux", "en_gain", "en_gain_abso",
-                          "ab_en_water", "collector", "collector_img",
-                          "mrw_path")})
+                for f in ENERGY_TALLIES})
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         stats["wall_s"] = time.time() - t0
@@ -542,6 +587,12 @@ class DiskModel:
             tall, fates, stats = self.mc_pass(seed * 1000 + ip, nph, cells)
             self.tallies = tall
             fld = self.reduce(tall, cells)
+            if self.group is not None:
+                # every rank holds the summed tallies; the fields and the
+                # Tdust taken from them are rank 0's everywhere
+                for t in fld:
+                    if isinstance(t, torch.Tensor):
+                        mesh.broadcast_(t, group=self.group)
             self.fields = fld
             self.Tdusts = fld.Tdusts.cpu().numpy()
             self.Tdust = fld.Tdust.cpu().numpy()
@@ -821,15 +872,25 @@ class DiskModel:
             + (time.time() - t_env0)
         rtol, atol = odesys.tolerance_ladder(
             self.net, level, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
-        res = self.ode.solve_batched(
-            env, self._t(np.ascontiguousarray(self.X[:, idx].T)),
-            self._t(self.Tgas[idx]), touts, rtol, atol,
-            first_step=cfg.dt_first, evolT=cfg.evolT, tenvs=tenv,
-            max_steps_per_interval=cfg.max_steps_per_interval,
-            host_loop=True, max_wall_s=cfg.chunk_wall_s or None,
-            progress_cb=lambda i, s: (
-                self.say(f"      ...interval {i}")
-                if i and i % 16 == 0 else None))
+        y0b = self._t(np.ascontiguousarray(self.X[:, idx].T))
+        T0b = self._t(self.Tgas[idx])
+        kw = dict(max_steps_per_interval=cfg.max_steps_per_interval,
+                  max_wall_s=cfg.chunk_wall_s or None,
+                  progress_cb=lambda i, s: (
+                      self.say(f"      ...interval {i}")
+                      if i and i % 16 == 0 else None))
+        if self._shard_chemistry() and len(idx) % self.world == 0:
+            # the chunk's lanes sharded over the ranks, results gathered
+            # on every rank (JAX driver.py:713-723)
+            B = len(idx)
+            res = mesh.sharded_chemistry_solve(
+                self.ode, env, tenv, y0b, T0b, touts, rtol.expand(B, -1),
+                atol.expand(B, -1), cfg.dt_first, cfg.evolT,
+                group=self.group, **kw)
+        else:
+            res = self.ode.solve_batched(
+                env, y0b, T0b, touts, rtol, atol, first_step=cfg.dt_first,
+                evolT=cfg.evolT, tenvs=tenv, host_loop=True, **kw)
         ok = ~res.fail[:n_real].cpu().numpy()
         cells = idx[:n_real]
         yf = res.ys[:n_real, -1, :].cpu().numpy()
@@ -839,6 +900,10 @@ class DiskModel:
         else:
             self._equilibrium_T(cells, ok, n_real)
         return ok, int(res.n_steps[:n_real].sum()), res.n_rounds
+
+    def _shard_chemistry(self):
+        """Whether the sweep shards its chunks over the ranks."""
+        return self.cfg.shard_chemistry and self.group is not None
 
     def _chunked_sweep(self, act, touts):
         """The chunked sweep (chem_stream=False): the active cells in
@@ -887,8 +952,9 @@ class DiskModel:
 
         Cells are ordered by density so that neighbouring lanes of the
         window are similarly stiff.  The cells go through the pool sweep,
-        or with chem_stream=False through the chunked sweep.  Returns the
-        converged fraction."""
+        or with chem_stream=False, or with shard_chemistry on several
+        ranks, through the chunked sweep (its chunks then sharded over the
+        ranks).  Returns the converged fraction."""
         cfg = self.cfg
         act = np.nonzero(self.grid.using)[0]
         act = act[np.argsort(self.grid.n0[act])]
@@ -909,10 +975,20 @@ class DiskModel:
         self.prepare_sweep_fields()
         if not len(act):
             pending = np.array([], dtype=np.int64)
-        elif cfg.chem_stream:
+        elif cfg.chem_stream and not self._shard_chemistry():
             pending = self._pool_sweep(act, touts)
         else:
+            # the chunked sweep, its chunks sharded over several ranks
+            # (JAX driver.py:857-858)
             pending = self._chunked_sweep(act, touts)
+        if self.group is not None:
+            # rank 0's sweep result on every rank
+            failed = np.zeros(self.grid.n_cells, bool)
+            failed[pending] = True
+            pending = np.nonzero(mesh.broadcast_array(
+                failed, group=self.group))[0]
+            self.X = mesh.broadcast_array(self.X, group=self.group)
+            self.Tgas = mesh.broadcast_array(self.Tgas, group=self.group)
         self.quality[pending] += 512
         if len(pending):
             self.say(f"  {len(pending)} cells failed all "
@@ -970,7 +1046,7 @@ class DiskModel:
             self.stage_times.append(stage_t)
             self.say("  stage timing: " + "  ".join(
                 f"{k} {v:.1f}s" for k, v in stage_t.items()))
-            if save_dir is not None:
+            if save_dir is not None and self.rank == 0:
                 from . import output as outmod
                 p = pathlib.Path(save_dir) / f"iter_{it:04d}.npz"
                 outmod.save_iter_npz(p, self, it)

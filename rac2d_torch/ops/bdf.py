@@ -18,8 +18,15 @@ version compiled them into ``lax.cond``/``while_loop``.
 The Newton matrix is factored in f32 by the blocked no-pivot LU: the hand
 kernels K1/K2 on a CUDA tensor (``ops/kernels.py``), their plain versions
 (``ops/blocklu.py``) on a CPU tensor or when ``lu_backend="block"`` is
-asked for.  One f64 iterative-refinement step per solve (``n_refine``)
-recovers f64-level Newton corrections.
+asked for; ``"inv"`` (the explicit inverse) and ``"xla"`` (torch's
+pivoted LU) are the JAX package's other backends, and RAC2D_LU_BACKEND
+picks the default (``LU_BACKENDS``).  One f64 iterative-refinement step
+per solve (``n_refine``) recovers f64-level Newton corrections.
+
+With a process group (``group``, the record drivers), every host decision
+that couples lanes (the refresh branches, the round loop, the wall
+guard) is all-reduced over the group (``_any``), so that every rank of a
+sharded solve takes the same branches and makes the same collectives.
 
 Ported here: the step helpers, the single-system solver (``_newton``,
 ``_step``, ``bdf_solve``: one cell on [NEQ] tensors with its own refresh
@@ -41,12 +48,14 @@ host callbacks) are not ported.
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from . import blocklu, kernels
 from .linalg import MPFactor, mp_factor, mp_solve
 from ..utils.tree import tree_map
@@ -450,11 +459,41 @@ class BDFBatchState(NamedTuple):
     need_j: torch.Tensor     # [B] bool: lane's Newton failed on stale J
 
 
-def _bfac(J, c, col_scale, lu_backend="kernel"):
+# The batched Newton factorization's backend (lu_backend):
+#   "kernel" — the blocked no-pivot LU: kernels K1 (factor) and K2
+#              (substitution) on a CUDA tensor, their plain versions
+#              (ops/blocklu.py) on a CPU tensor;
+#   "block"  — the plain versions on any device, for comparison;
+#   "inv"    — the explicit inverse from the blocked factor
+#              (blocklu.block_invert of K1's factor on a CUDA tensor, of
+#              the plain one on the CPU), and each solve one batched f32
+#              matvec (the JAX package's TPU default; on the card it is
+#              for parity, not speed);
+#   "xla"    — the row-pivoted LU of torch.linalg (lu_factor, lu_solve),
+#              the JAX package's debugging path.
+# The default comes from RAC2D_LU_BACKEND, as in the JAX package, which
+# also takes "auto" and "pallas" (its TPU kernels): both mean "kernel".
+LU_BACKENDS = {"auto": "kernel", "pallas": "kernel", "kernel": "kernel",
+               "block": "block", "inv": "inv", "xla": "xla"}
+
+
+def lu_backend_of(name=None) -> str:
+    """The backend for an lu_backend argument; None reads
+    RAC2D_LU_BACKEND (default "auto").  An unknown name raises."""
+    if name is None:
+        name = os.environ.get("RAC2D_LU_BACKEND", "auto")
+    if name not in LU_BACKENDS:
+        raise ValueError(f"unknown lu_backend {name!r}; one of "
+                         f"{sorted(LU_BACKENDS)}")
+    return LU_BACKENDS[name]
+
+
+def _bfac(J, c, col_scale, lu_backend=None):
     """Batched row/col-equilibrated f32 factorization of I - c J.
 
-    The equilibration is f64 torch; the factorization is kernel K1 (or
-    its plain version for lu_backend="block" or CPU tensors)."""
+    The equilibration is f64 torch; the factorization is lu_backend's
+    (kernel K1 by default).  Returns (row scales, col scales, factor)."""
+    backend = lu_backend_of(lu_backend)
     B, NEQ, _ = J.shape
     eye = torch.eye(NEQ, dtype=J.dtype, device=J.device)
     A = eye[None] - c[:, None, None] * J
@@ -462,20 +501,31 @@ def _bfac(J, c, col_scale, lu_backend="kernel"):
     amax = torch.amax(torch.abs(Ac), dim=2)
     rs = torch.where(amax > 0.0, 1.0 / amax, 1.0)
     As = (Ac * rs[:, :, None]).to(F32)
-    if lu_backend == "block":
+    if backend == "block":
         return rs, col_scale, blocklu.block_lu(As)
-    if lu_backend != "kernel":
-        raise ValueError(f"unknown lu_backend {lu_backend!r}")
-    return rs, col_scale, kernels.block_lu_factor(As)
+    if backend == "xla":
+        return rs, col_scale, torch.linalg.lu_factor(As)
+    fac = kernels.block_lu_factor(As)
+    if backend == "inv":
+        return rs, col_scale, blocklu.block_invert(fac)
+    return rs, col_scale, fac
 
 
-def _bsolve(J, c_lu, fac, b, n_refine=1, lu_backend="kernel"):
+def _bsolve(J, c_lu, fac, b, n_refine=1, lu_backend=None):
     """Batched mixed-precision solve of (I - c_lu J) x = b: f32 solves
-    through the factorization (kernel K2, or its plain version) with
-    n_refine steps of iterative refinement against the f64 residual."""
+    through the factorization (kernel K2 or lu_backend's) with n_refine
+    steps of iterative refinement against the f64 residual."""
+    backend = lu_backend_of(lu_backend)
     rs, cs, fac32 = fac
-    raw_solve = blocklu.block_lu_solve if lu_backend == "block" \
-        else kernels.block_lu_solve
+    if backend == "block":
+        raw_solve = blocklu.block_lu_solve
+    elif backend == "inv":
+        raw_solve = blocklu.inverse_apply
+    elif backend == "xla":
+        def raw_solve(f, rsb):
+            return torch.linalg.lu_solve(f[0], f[1], rsb[..., None])[..., 0]
+    else:
+        raw_solve = kernels.block_lu_solve
 
     def f32_solve(r):
         rsb = (r * rs).to(F32)
@@ -512,17 +562,36 @@ def _batch_init(f_b, y0, t0, first_step, args) -> BDFBatchState:
         need_j=torch.ones(B, dtype=torch.bool, device=dev))
 
 
-def _newton_tol_of(rtol):
+def _any(mask, group=None) -> bool:
+    """Whether any entry of mask is true: on this batch, or with a process
+    group over the batches of every rank (one all_reduce), so that every
+    rank of a sharded solve takes the same branch."""
+    if group is None:
+        return bool(torch.any(mask))
+    return mesh.any_rank(torch.any(mask), group)
+
+
+def _newton_tol_of(rtol, group=None):
     rtol_min = float(torch.min(rtol))
+    if group is not None:
+        rtol_min = mesh.min_rank(rtol_min, group)
     return max(10 * _EPS / max(rtol_min, 1e-15), min(0.03, math.sqrt(rtol_min)))
 
 
 def _make_round_body(f_b: Callable, jac_b: Callable,
                      sanity_b: Callable | None, n_refine: int,
-                     lu_backend: str = "kernel"):
+                     lu_backend: str | None = None, group=None):
     """One batched BDF round (predict -> refresh? -> Newton -> error test
     -> adapt) as round_body(state, tout, t_bound, rtol, atol, newton_tol,
-    args)."""
+    args).  lu_backend (None: RAC2D_LU_BACKEND) is fixed here for every
+    round of the solve.
+
+    With a process group, the refresh decisions (the branches that change
+    every lane's Newton matrix) are taken over the lanes of every rank.
+    The Newton loop's exit stays this batch's own: a lane that has
+    stopped iterating is masked out of every later iteration and holds
+    no collective, so an extra iteration changes nothing."""
+    lu_backend = lu_backend_of(lu_backend)
 
     def round_body(state: BDFBatchState, tout, t_bound, rtol, atol,
                    newton_tol, args):
@@ -553,8 +622,15 @@ def _make_round_body(f_b: Callable, jac_b: Callable,
         # an active lane's c drifted beyond DELTA_C_BATCH from c_lu ---
         drift = torch.abs(c / state.c_lu - 1.0) > DELTA_C_BATCH
         drift = drift | ~torch.isfinite(state.c_lu)
-        refresh_j = bool(torch.any(active & state.need_j))
-        refresh_lu = refresh_j or bool(torch.any(active & drift))
+        if group is None:
+            refresh_j = bool(torch.any(active & state.need_j))
+            refresh_lu = refresh_j or bool(torch.any(active & drift))
+        else:
+            # both flags over every rank's lanes in one all_reduce
+            refresh_j, drifted = mesh.any_rank_each(torch.stack(
+                [torch.any(active & state.need_j),
+                 torch.any(active & drift)]), group)
+            refresh_lu = refresh_j or drifted
         if refresh_j:
             J = jac_b(y_pred, args)
             jfresh = torch.ones(B, dtype=torch.bool, device=D.device)
@@ -679,22 +755,26 @@ def _make_round_body(f_b: Callable, jac_b: Callable,
 def make_record(f_b: Callable, jac_b: Callable,
                 max_steps_per_interval: int = 2000,
                 sanity_b: Callable | None = None, n_refine: int = 1,
-                lu_backend: str = "kernel"):
+                lu_backend: str | None = None, group=None):
     """record(state, tout, t_bound, rtol, atol, args) -> (state, (t_rec,
     y_rec)): BDF rounds until every lane is at tout, has failed, or the
     interval's round budget max_steps_per_interval is spent; a lane short
     of tout then fails.  Each lane's record is its dense output at
     min(tout, t).  The record drivers call it once per output time, so
     every lane waits at each tout for the slowest (JAX
-    ``_make_batch_record``; ``record.rounds`` counts the rounds run)."""
+    ``_make_batch_record``; ``record.rounds`` counts the rounds run).
+    With a process group (a sharded solve), the round loop runs while a
+    lane of any rank is short of tout, and every decision of the round
+    body that couples lanes is taken over all ranks' lanes (_any), as
+    in one batch."""
     round_body = _make_round_body(f_b, jac_b, sanity_b, n_refine,
-                                  lu_backend)
+                                  lu_backend, group)
 
     def record(state, tout, t_bound, rtol, atol, args):
-        newton_tol = _newton_tol_of(rtol)
+        newton_tol = _newton_tol_of(rtol, group)
         k = 0
         while k < max_steps_per_interval \
-                and bool(torch.any((state.t < tout) & ~state.fail)):
+                and _any((state.t < tout) & ~state.fail, group):
             state = round_body(state, tout, t_bound, rtol, atol, newton_tol,
                                args)
             k += 1
@@ -719,7 +799,8 @@ def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
                          n_refine: int = 1, max_wall_s: float | None = None,
                          progress_cb: Callable | None = None,
                          args=None, record_fn=None,
-                         lu_backend: str = "kernel") -> BDFResult:
+                         lu_backend: str | None = None,
+                         group=None) -> BDFResult:
     """Batched BDF integration with a barrier at every output time: one
     record call per tout (make_record), driven from the host.  y0, rtol,
     atol: [B, NEQ]; f_b(y, args) / jac_b(y, args) as for the pool.
@@ -731,6 +812,9 @@ def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
     touts[-1] fail ("Premature finish"); their later records repeat the
     last one.  The budget counts from the first call (the JAX package
     exempts a freshly jitted record's first interval, for its compile).
+    With a process group (a sharded solve; record_fn, if given, built
+    with it), the guard stops every rank once it fires on any, so all
+    make the same collectives.
     Returns ts [B, n_out], ys [B, n_out, NEQ] on y0's device, and
     n_rounds, the BDF rounds run."""
     y0 = y0.to(F64)
@@ -738,7 +822,8 @@ def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
     t_bound = touts[-1]
     state = _batch_init(f_b, y0, t0, first_step, args)
     record = record_fn if record_fn is not None else make_record(
-        f_b, jac_b, max_steps_per_interval, sanity_b, n_refine, lu_backend)
+        f_b, jac_b, max_steps_per_interval, sanity_b, n_refine, lu_backend,
+        group)
     rounds0 = record.rounds
     t_start = time.time()
     t_prev = None
@@ -764,6 +849,8 @@ def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
                 # single-interval blow-up guard (chemistry.f90:482-487)
                 aborted = True
             t_prev = dt_iv
+            if group is not None:
+                aborted = mesh.any_rank(aborted, group)
         ts_l.append(t_rec)
         ys_l.append(y_rec)
         if progress_cb is not None:
@@ -780,7 +867,8 @@ def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
 def bdf_solve_batch(f_b: Callable, jac_b: Callable, y0, t0, touts, rtol,
                     atol, first_step, max_steps_per_interval: int = 2000,
                     sanity_b: Callable | None = None, n_refine: int = 1,
-                    args=None, lu_backend: str = "kernel") -> BDFResult:
+                    args=None, lu_backend: str | None = None,
+                    group=None) -> BDFResult:
     """Batched BDF integration recording at `touts`: the JAX package's
     scan over record intervals becomes the host loop of
     bdf_solve_batch_host, without a wall guard (the two give the same
@@ -788,7 +876,7 @@ def bdf_solve_batch(f_b: Callable, jac_b: Callable, y0, t0, touts, rtol,
     return bdf_solve_batch_host(
         f_b, jac_b, y0, t0, touts, rtol, atol, first_step,
         max_steps_per_interval, sanity_b, n_refine, args=args,
-        lu_backend=lu_backend)
+        lu_backend=lu_backend, group=group)
 
 
 class ContState(NamedTuple):
@@ -803,7 +891,7 @@ class ContState(NamedTuple):
 def make_advance(f_b: Callable, jac_b: Callable,
                  max_steps_per_interval: int = 2000,
                  sanity_b: Callable | None = None, n_refine: int = 1,
-                 lu_backend: str = "kernel"):
+                 lu_backend: str | None = None):
     """advance(cst, touts, t_bound, rtol, atol, args, max_rounds) ->
     ContState: up to max_rounds BDF rounds in which every lane steps
     toward t_bound and records its own touts by dense output when it
@@ -910,7 +998,7 @@ def bdf_solve_batch_cont(f_b: Callable, jac_b: Callable, y0, t0, touts,
                          progress_cb: Callable | None = None,
                          args=None, rounds_per_call: int = 256,
                          retry_tols=None, compact_min: int = 0,
-                         lu_backend: str = "kernel") -> BDFResult:
+                         lu_backend: str | None = None) -> BDFResult:
     """Continuous-recording batch solve (make_advance): advance calls of
     rounds_per_call BDF rounds, no barrier at the output times; the same
     result shapes as bdf_solve_batch_host, on the CPU.
@@ -1050,7 +1138,7 @@ def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,
                          progress_cb: Callable | None = None,
                          args_pool=None, rounds_per_call: int = 256,
                          retry_tols=None,
-                         lu_backend: str = "kernel") -> BDFResult:
+                         lu_backend: str | None = None) -> BDFResult:
     """Pool-refill batch solve: integrate N >> width lanes through a
     constant-width window.  After each advance call of rounds_per_call
     rounds, finished lanes retire (final state flushed to host buffers)

@@ -205,3 +205,64 @@ def block_lu_solve(fac: BlockLU, b):
         if kb > 0:
             y[:, :kb] -= _mv(lu[:, :kb, kb:kb + BK], xk)
     return y[:, :n]
+
+
+def _no_tf32(t, what):
+    """Refuse a CUDA f32 matmul while TF32 is allowed: the explicit
+    inverse must keep full f32 products (the JAX package pins
+    Precision.HIGHEST for it)."""
+    if t.is_cuda and t.dtype == torch.float32 and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(f"{what}: TF32 is allowed for CUDA matmuls; "
+                           "the package switches it off at import "
+                           "(rac2d_torch/__init__.py), turn it off again")
+
+
+def block_invert(fac: BlockLU):
+    """Explicit inverses [B, N, N] from a blocked factorization (the
+    plain one or kernel K1's), as the JAX package's ``block_invert``: inv(L)
+    and inv(U) by block substitution against the identity, K panel steps
+    of batched matmuls each, then inv(U) @ inv(L).  Reads only the
+    entries block substitution needs (the strict lower triangle of linv,
+    the upper triangle of uinv, the off-diagonal blocks of lu).  The
+    top-left n x n block inverts A; a solve is then one batched matvec."""
+    lu = fac.lu
+    _no_tf32(lu, "block_invert")
+    B, N, _ = lu.shape
+    K = N // BK
+    ones = torch.ones(BK, BK, dtype=torch.bool, device=lu.device)
+    eye_k = torch.eye(BK, dtype=lu.dtype, device=lu.device)
+    linv = torch.where(torch.tril(ones, -1), fac.linv, 0.0) + eye_k
+    uinv = torch.where(torch.triu(ones), fac.uinv, 0.0)
+    eye = torch.eye(N, dtype=lu.dtype, device=lu.device).expand(B, N, N)
+    # inv(L): forward block substitution L X = I
+    Xl = lu.new_zeros(B, N, N)
+    R = eye.clone()
+    for k in range(K):
+        kb = k * BK
+        Xk = torch.matmul(linv[:, k], R[:, kb:kb + BK, :])
+        Xl[:, kb:kb + BK, :] = Xk
+        if kb + BK < N:
+            R[:, kb + BK:, :] -= torch.matmul(lu[:, kb + BK:, kb:kb + BK], Xk)
+    # inv(U): backward block substitution U X = I
+    Xu = lu.new_zeros(B, N, N)
+    R = eye.clone()
+    for k in range(K - 1, -1, -1):
+        kb = k * BK
+        Xk = torch.matmul(uinv[:, k], R[:, kb:kb + BK, :])
+        Xu[:, kb:kb + BK, :] = Xk
+        if kb > 0:
+            R[:, :kb, :] -= torch.matmul(lu[:, :kb, kb:kb + BK], Xk)
+    return torch.matmul(Xu, Xl)
+
+
+def inverse_apply(Ainv, b):
+    """x = A^-1 b for b [B, n] from block_invert's Ainv [B, N, N]: one
+    batched matvec over the whole (contiguous) inverse in its dtype, with
+    b's padded tail zero."""
+    _no_tf32(Ainv, "inverse_apply")
+    n = b.shape[-1]
+    bp = b.new_zeros(b.shape[:-1] + (Ainv.shape[-1],), dtype=Ainv.dtype)
+    bp[..., :n] = b
+    return torch.matmul(Ainv, bp[..., None])[..., :n, 0]

@@ -217,7 +217,8 @@ class ChemicalODE:
                       max_wall_s: float | None = None, progress_cb=None,
                       rounds_per_call: int = 256, retry_tols=None,
                       compact_min: int = 0,
-                      lu_backend: str = "kernel") -> bdfmod.BDFResult:
+                      lu_backend: str | None = None,
+                      group=None) -> bdfmod.BDFResult:
         """Batch-native solve of B cells recording at `touts`: envs/tenvs
         fields, y0_species [B, nS] and Tgas0 [B] on this device; rtol/atol
         [NEQ] rows or [B, NEQ].  continuous=True: per-lane recording with
@@ -227,7 +228,15 @@ class ChemicalODE:
         progress_cb(i, state) after each (bdf.bdf_solve_batch_host, the
         chunked sweep's driver); neither: bdf.bdf_solve_batch.  With
         evolT=False the rate vectors are computed once per lane.
-        lu_backend as for solve_pool."""
+        lu_backend as for solve_pool.  group: a process group over which
+        the record drivers take their batch-global decisions (this
+        batch is one rank's block of a sharded solve,
+        parallel.mesh.sharded_chemistry_solve); the continuous driver
+        takes none, as in the JAX package, which shards only the record
+        solve."""
+        if continuous and group is not None:
+            raise ValueError("the continuous driver is not sharded; "
+                             "a process group needs the record drivers")
         f_b, jac_b, sanity_b = self._batch_fns(evolT)
         kb = None if evolT else self._rates(envs, envs.Tgas)
         args = (envs, tenvs, kb)
@@ -246,9 +255,10 @@ class ChemicalODE:
         if host_loop:
             return bdfmod.bdf_solve_batch_host(
                 f_b, jac_b, y0, 0.0, touts, rtol, atol, first_step,
-                max_wall_s=max_wall_s, progress_cb=progress_cb, **kw)
+                max_wall_s=max_wall_s, progress_cb=progress_cb,
+                group=group, **kw)
         return bdfmod.bdf_solve_batch(f_b, jac_b, y0, 0.0, touts, rtol,
-                                      atol, first_step, **kw)
+                                      atol, first_step, group=group, **kw)
 
     def solve_pool(self, envs: CellEnv, y0_species, Tgas0, touts, rtol,
                    atol, width: int, first_step=1e-8,
@@ -258,7 +268,7 @@ class ChemicalODE:
                    max_wall_s: float | None = None,
                    progress_cb=None,
                    rounds_per_call: int = 256,
-                   lu_backend: str = "kernel") -> bdfmod.BDFResult:
+                   lu_backend: str | None = None) -> bdfmod.BDFResult:
         """Pool-refill sweep: N >> width lanes stream through ONE
         constant-width window (bdf.bdf_solve_batch_pool).  envs/tenvs
         fields, y0_species [N, nS] and Tgas0 [N] live on this ODE's
@@ -269,7 +279,8 @@ class ChemicalODE:
         lu_backend="kernel" factors and solves through the CUDA kernels
         on a CUDA device (their plain versions on the CPU);
         lu_backend="block" runs the plain versions on any device, for
-        comparison.
+        comparison; "inv" and "xla" as in bdf.LU_BACKENDS; None takes
+        RAC2D_LU_BACKEND.
         """
         f_b, jac_b, sanity_b = self._batch_fns(evolT)
         kb = None if evolT else self._rates(envs, envs.Tgas)

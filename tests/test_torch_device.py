@@ -41,6 +41,7 @@ ENTRY_POINTS = [
     ("rac2d_torch.convert", "mc_tallies"),
     ("rac2d_torch.convert", "path_matrix"),
     ("rac2d_torch.ops.columns", "build_path_matrices"),
+    ("rac2d_torch.parallel.mesh", "init_distributed"),
 ]
 
 # DiskModel methods that build tensors: they take no device of their own
@@ -136,7 +137,9 @@ def test_port_imports_no_jax():
             "rac2d_torch.ops.stateq, rac2d_torch.ops.linalg, "
             "rac2d_torch.ops.vertical, rac2d_torch.models.amr, "
             "rac2d_torch.ops.analysis, rac2d_torch.ops.bdf, "
-            "rac2d_torch.ops.thermal\n"
+            "rac2d_torch.ops.thermal, rac2d_torch.postprocess, "
+            "rac2d_torch.io.radmc, rac2d_torch.parallel.mesh, "
+            "rac2d_torch.ops.blocklu\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rac2d_tpu'))\n"
@@ -169,6 +172,8 @@ FOLLOW_THE_MODEL = [
     ("rac2d_torch.ops.analysis", "analyse_model_points"),
     ("rac2d_torch.checkpoint", "save_state"),
     ("rac2d_torch.checkpoint", "load_state"),
+    ("rac2d_torch.checkpoint", "save_state_dist"),
+    ("rac2d_torch.checkpoint", "load_state_dist"),
     ("rac2d_torch.models.output", "save_iter_npz"),
 ]
 
@@ -236,3 +241,40 @@ def test_thermal_lut_defaults_to_the_card():
         pytest.skip("a card is present: the default device runs there")
     with pytest.raises((AssertionError, RuntimeError)):
         ThermalBalance(net, cfg, tdust_lut=lut)
+
+
+def test_init_distributed_defaults_to_the_card():
+    """init_distributed joins with NCCL on the card unless told "cpu";
+    without CUDA the default raises before any group exists."""
+    import torch.distributed as dist
+    from rac2d_torch.parallel import mesh
+    assert _device_param(mesh.init_distributed).default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        mesh.init_distributed("127.0.0.1:1", 1, 0)
+    assert not dist.is_initialized()
+
+
+def test_rank_device_binds_the_local_rank(monkeypatch):
+    """In a group of several ranks, "cuda" is the card of LOCAL_RANK; an
+    explicit card or the CPU stays as given; in one process "cuda" stays
+    "cuda"."""
+    from rac2d_torch.parallel import mesh
+    assert mesh.rank_device("cuda") == torch.device("cuda")
+    monkeypatch.setattr(mesh, "world_size", lambda group=None: 4)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert mesh.rank_device("cuda") == torch.device("cuda", 3)
+    assert mesh.rank_device("cuda:0") == torch.device("cuda", 0)
+    assert mesh.rank_device("cpu") == torch.device("cpu")
+
+
+def test_device_list_names_the_torchrun_launch():
+    from rac2d_torch.models import driver
+    from torch_mc_fixtures import disk_cfg
+    _, cfg = disk_cfg("torch")
+    with pytest.raises(NotImplementedError, match="torchrun"):
+        driver.DiskModel(cfg, device=["cuda:0", "cuda:1"])
+    m = driver.DiskModel(cfg, device=["cpu"])
+    assert m.device.type == "cpu" and (m.rank, m.world) == (0, 1)
+    assert m.group is None
