@@ -42,7 +42,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import constants as c
 from ..io import draine, umist
@@ -51,6 +50,8 @@ from ..ops import (columns, fields, geometry, mcrt, odesys, optics,
                    thermal)
 from ..ops.rates import CellEnv
 from ..parallel import mesh
+from ..utils import spans
+from ..utils.spans import span
 from . import density, star as starmod
 from .grid import Grid, GridConfig, make_grid
 
@@ -553,7 +554,7 @@ class DiskModel:
             _, tall, fates = mcrt.mc_pass_streamed(
                 model, gen, lam_pk, en_norm, 0.0, cfg.maxw, tall, **kw)
         # scale the energy tallies back to physical units, in f64
-        with record_function("mc.rescale"):
+        with span("mc.rescale"):
             tall = tall._replace(**{
                 f: getattr(tall, f).to(torch.float64) * en_scale
                 for f in ENERGY_TALLIES})
@@ -641,38 +642,40 @@ class DiskModel:
         """Full-disk column/shielding quantities, computed once per
         chemistry sweep from the previous iterate (the reference instead
         walks rays against the live state cell by cell,
-        disk.f90:1823 update_params_above_alt; PARITY.md)."""
+        disk.f90:1823 update_params_above_alt; PARITY.md).  Its time, to
+        the closing synchronize, is the span chem.shield and
+        self._t_shield."""
         g = self.grid
         t = self._t
-        t_sh = time.time()
-        dv = np.sqrt(c.kBoltzmann_CGS * np.maximum(self.Tgas, 10.0)
-                     / (c.mProton_CGS * 1.4 * 2.0))
-        sh = columns.compute_shielding(
-            self.W_star, self.W_ism, t(g.n0), t(self.X), self.net.idx,
-            t(dv), self.thermal_visser())
-        self._shield = sh
-        # Av to ISM: dust column scaled by the geometric cross section x2
-        # (reference mode -6 of calc_Ncol_from_cell_to_point,
-        # disk.f90:2691-2700, applied at disk.f90:1430)
-        Ncol_dust_ism = self.W_ism.matvec(t(self.n_dusts.sum(0)))
-        self._Av_ism = 1.086 * Ncol_dust_ism * np.pi \
-            * t(self.grain_a) ** 2 * 2.0
-        self._zetaX_ncol = None
-        if self.cfg.calc_zetaXray_from_Ncol:
-            lam = np.asarray(self.tab.lam, dtype=np.float64)
-            sv = np.interp(lam, self.star.lam, self.star.vals, left=0.0,
-                           right=0.0)
-            xr_lo = c.lam_range_Xray[0] / c.Angstrom2micron
-            xr_hi = c.lam_range_Xray[1] / c.Angstrom2micron
-            self._zetaX_ncol = columns.xray_ionization_rate_ncol(
-                lam, sv, (lam >= xr_lo) & (lam <= xr_hi),
-                t(np.full(g.n_cells, self.cfg.dust_depletion,
-                          dtype=np.float64)),
-                t(self.d2h), t(self.grain_a), sh.Ncol_toStar,
-                t(self.r_cells), t(self.z_cells))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._t_shield = time.time() - t_sh
+        with span("chem.shield") as sp:
+            dv = np.sqrt(c.kBoltzmann_CGS * np.maximum(self.Tgas, 10.0)
+                         / (c.mProton_CGS * 1.4 * 2.0))
+            sh = columns.compute_shielding(
+                self.W_star, self.W_ism, t(g.n0), t(self.X), self.net.idx,
+                t(dv), self.thermal_visser())
+            self._shield = sh
+            # Av to ISM: dust column scaled by the geometric cross section x2
+            # (reference mode -6 of calc_Ncol_from_cell_to_point,
+            # disk.f90:2691-2700, applied at disk.f90:1430)
+            Ncol_dust_ism = self.W_ism.matvec(t(self.n_dusts.sum(0)))
+            self._Av_ism = 1.086 * Ncol_dust_ism * np.pi \
+                * t(self.grain_a) ** 2 * 2.0
+            self._zetaX_ncol = None
+            if self.cfg.calc_zetaXray_from_Ncol:
+                lam = np.asarray(self.tab.lam, dtype=np.float64)
+                sv = np.interp(lam, self.star.lam, self.star.vals, left=0.0,
+                               right=0.0)
+                xr_lo = c.lam_range_Xray[0] / c.Angstrom2micron
+                xr_hi = c.lam_range_Xray[1] / c.Angstrom2micron
+                self._zetaX_ncol = columns.xray_ionization_rate_ncol(
+                    lam, sv, (lam >= xr_lo) & (lam <= xr_hi),
+                    t(np.full(g.n_cells, self.cfg.dust_depletion,
+                              dtype=np.float64)),
+                    t(self.d2h), t(self.grain_a), sh.Ncol_toStar,
+                    t(self.r_cells), t(self.z_cells))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._t_shield = sp.seconds
 
     def assemble_envs(self, idx):
         """CellEnv/ThermalEnv for the cells in index array idx, float64 on
@@ -786,44 +789,44 @@ class DiskModel:
         indices of cells that failed every ladder level."""
         cfg = self.cfg
         nS = self.net.n_species
-        t_env0 = time.time()
-        env, tenv = self.assemble_envs(act)
-        self._t_envs = getattr(self, "_t_envs", 0.0) \
-            + (time.time() - t_env0)
-        y0b = self._t(np.ascontiguousarray(self.X[:, act].T))
-        T0b = self._t(self.Tgas[act])
-        d2g = self._sweep_d2g(act)
-        rtol, atol = odesys.tolerance_ladder(
-            self.net, 1, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
-        retry = self.ode.retry_ladder(
-            max(cfg.nlocal_iter - 1, 0), cfg.rtol_chem, cfg.atol_chem,
-            d2g) or None
-        W = min(cfg.chem_chunk, len(act))
-        n_chunks = -(-len(act) // W)
-        wall = (cfg.chunk_wall_s * n_chunks * cfg.nlocal_iter) or None
-        t0 = time.time()
-        res = self.ode.solve_pool(
-            env, y0b, T0b, touts, rtol, atol, width=W,
-            first_step=cfg.dt_first, evolT=cfg.evolT, tenvs=tenv,
-            max_steps_per_interval=cfg.max_steps_per_interval,
-            retry_tols=retry, max_wall_s=wall,
-            rounds_per_call=POOL_ROUNDS_PER_CALL,
-            progress_cb=lambda k, st: (
-                self.say(f"      ...pool call {k}")
-                if k and k % 32 == 0 else None))
-        self.pool_result = res
-        ok = ~res.fail.numpy()
-        yf = res.ys[:, -1, :].numpy()
-        self.X[:, act[ok]] = yf[ok, :nS].T
-        if cfg.evolT:
-            self.Tgas[act[ok]] = yf[ok, nS]
-        lvl = res.retry_level.numpy().astype(int)
-        self.say(f"    pool sweep: {len(act)} cells, width {W}, "
-                 f"{int(res.n_steps.sum())} steps, "
-                 f"{int((~ok).sum())} failed, ladder levels "
-                 f"{np.bincount(lvl, minlength=4).tolist()}, "
-                 f"{res.n_rounds} BDF rounds, {time.time() - t0:.1f}s"
-                 + (f" of a {wall:.0f}s budget" if wall else ""))
+        with span("chem.envs") as sp:
+            env, tenv = self.assemble_envs(act)
+        self._t_envs = getattr(self, "_t_envs", 0.0) + sp.seconds
+        with span("chem.pool"):
+            y0b = self._t(np.ascontiguousarray(self.X[:, act].T))
+            T0b = self._t(self.Tgas[act])
+            d2g = self._sweep_d2g(act)
+            rtol, atol = odesys.tolerance_ladder(
+                self.net, 1, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
+            retry = self.ode.retry_ladder(
+                max(cfg.nlocal_iter - 1, 0), cfg.rtol_chem, cfg.atol_chem,
+                d2g) or None
+            W = min(cfg.chem_chunk, len(act))
+            n_chunks = -(-len(act) // W)
+            wall = (cfg.chunk_wall_s * n_chunks * cfg.nlocal_iter) or None
+            t0 = time.time()
+            res = self.ode.solve_pool(
+                env, y0b, T0b, touts, rtol, atol, width=W,
+                first_step=cfg.dt_first, evolT=cfg.evolT, tenvs=tenv,
+                max_steps_per_interval=cfg.max_steps_per_interval,
+                retry_tols=retry, max_wall_s=wall,
+                rounds_per_call=POOL_ROUNDS_PER_CALL,
+                progress_cb=lambda k, st: (
+                    self.say(f"      ...pool call {k}")
+                    if k and k % 32 == 0 else None))
+            self.pool_result = res
+            ok = ~res.fail.numpy()
+            yf = res.ys[:, -1, :].numpy()
+            self.X[:, act[ok]] = yf[ok, :nS].T
+            if cfg.evolT:
+                self.Tgas[act[ok]] = yf[ok, nS]
+            lvl = res.retry_level.numpy().astype(int)
+            self.say(f"    pool sweep: {len(act)} cells, width {W}, "
+                     f"{int(res.n_steps.sum())} steps, "
+                     f"{int((~ok).sum())} failed, ladder levels "
+                     f"{np.bincount(lvl, minlength=4).tolist()}, "
+                     f"{res.n_rounds} BDF rounds, {time.time() - t0:.1f}s"
+                     + (f" of a {wall:.0f}s budget" if wall else ""))
         if not cfg.evolT:
             self._equilibrium_T(act, ok, W)
         return act[~ok]
@@ -834,24 +837,29 @@ class DiskModel:
         repeating its last cell), each with its environments assembled
         afresh, y = [X after the sweep, Tgas] and T0 = max(Tgas, 2) K,
         solve_equilibrium_T; a cell takes the new T only where it was
-        both bracketed and solved (ok)."""
+        both bracketed and solved (ok).  Its host time is the span
+        chem.eqT (the environments' assembly chem.envs)."""
         t0 = time.time()
         n_brk = 0
-        for lo in range(0, len(act), W):
-            idx = act[lo:lo + W]
-            n_real = len(idx)
-            if n_real < W:
-                idx = np.concatenate([idx, np.repeat(idx[-1:], W - n_real)])
-            env, tenv = self.assemble_envs(idx)
-            y = self._t(np.concatenate([self.X[:, idx].T,
-                                        self.Tgas[idx][:, None]], axis=1))
-            Teq, brk = self.thermal.solve_equilibrium_T(
-                y, env, tenv, self._t(np.maximum(self.Tgas[idx], 2.0)),
-                self.ode.tab)
-            brk = brk.cpu().numpy()[:n_real]
-            n_brk += int(brk.sum())
-            upd = brk & ok[lo:lo + n_real]
-            self.Tgas[idx[:n_real][upd]] = Teq.cpu().numpy()[:n_real][upd]
+        with span("chem.eqT"):
+            for lo in range(0, len(act), W):
+                idx = act[lo:lo + W]
+                n_real = len(idx)
+                if n_real < W:
+                    idx = np.concatenate([idx,
+                                          np.repeat(idx[-1:], W - n_real)])
+                with span("chem.envs"):
+                    env, tenv = self.assemble_envs(idx)
+                y = self._t(np.concatenate([self.X[:, idx].T,
+                                            self.Tgas[idx][:, None]], axis=1))
+                Teq, brk = self.thermal.solve_equilibrium_T(
+                    y, env, tenv, self._t(np.maximum(self.Tgas[idx], 2.0)),
+                    self.ode.tab)
+                brk = brk.cpu().numpy()[:n_real]
+                n_brk += int(brk.sum())
+                upd = brk & ok[lo:lo + n_real]
+                self.Tgas[idx[:n_real][upd]] = \
+                    Teq.cpu().numpy()[:n_real][upd]
         self.say(f"    equilibrium T: {n_brk} cells bracketed, "
                  f"{len(act) - n_brk} not, {time.time() - t0:.1f}s")
 
@@ -866,40 +874,43 @@ class DiskModel:
         steps, the BDF rounds run)."""
         cfg = self.cfg
         nS = self.net.n_species
-        t_env0 = time.time()
-        env, tenv = self.assemble_envs(idx)
-        self._t_envs = getattr(self, "_t_envs", 0.0) \
-            + (time.time() - t_env0)
-        rtol, atol = odesys.tolerance_ladder(
-            self.net, level, cfg.rtol_chem, cfg.atol_chem, d2g, self.device)
-        y0b = self._t(np.ascontiguousarray(self.X[:, idx].T))
-        T0b = self._t(self.Tgas[idx])
-        kw = dict(max_steps_per_interval=cfg.max_steps_per_interval,
-                  max_wall_s=cfg.chunk_wall_s or None,
-                  progress_cb=lambda i, s: (
-                      self.say(f"      ...interval {i}")
-                      if i and i % 16 == 0 else None))
-        if self._shard_chemistry() and len(idx) % self.world == 0:
-            # the chunk's lanes sharded over the ranks, results gathered
-            # on every rank (JAX driver.py:713-723)
-            B = len(idx)
-            res = mesh.sharded_chemistry_solve(
-                self.ode, env, tenv, y0b, T0b, touts, rtol.expand(B, -1),
-                atol.expand(B, -1), cfg.dt_first, cfg.evolT,
-                group=self.group, **kw)
-        else:
-            res = self.ode.solve_batched(
-                env, y0b, T0b, touts, rtol, atol, first_step=cfg.dt_first,
-                evolT=cfg.evolT, tenvs=tenv, host_loop=True, **kw)
-        ok = ~res.fail[:n_real].cpu().numpy()
-        cells = idx[:n_real]
-        yf = res.ys[:n_real, -1, :].cpu().numpy()
-        self.X[:, cells[ok]] = yf[ok, :nS].T
-        if cfg.evolT:
-            self.Tgas[cells[ok]] = yf[ok, nS]
-        else:
+        with span("chem.envs") as sp:
+            env, tenv = self.assemble_envs(idx)
+        self._t_envs = getattr(self, "_t_envs", 0.0) + sp.seconds
+        with span("chem.pool"):
+            rtol, atol = odesys.tolerance_ladder(
+                self.net, level, cfg.rtol_chem, cfg.atol_chem, d2g,
+                self.device)
+            y0b = self._t(np.ascontiguousarray(self.X[:, idx].T))
+            T0b = self._t(self.Tgas[idx])
+            kw = dict(max_steps_per_interval=cfg.max_steps_per_interval,
+                      max_wall_s=cfg.chunk_wall_s or None,
+                      progress_cb=lambda i, s: (
+                          self.say(f"      ...interval {i}")
+                          if i and i % 16 == 0 else None))
+            if self._shard_chemistry() and len(idx) % self.world == 0:
+                # the chunk's lanes sharded over the ranks, results
+                # gathered on every rank (JAX driver.py:713-723)
+                B = len(idx)
+                res = mesh.sharded_chemistry_solve(
+                    self.ode, env, tenv, y0b, T0b, touts,
+                    rtol.expand(B, -1), atol.expand(B, -1), cfg.dt_first,
+                    cfg.evolT, group=self.group, **kw)
+            else:
+                res = self.ode.solve_batched(
+                    env, y0b, T0b, touts, rtol, atol,
+                    first_step=cfg.dt_first, evolT=cfg.evolT, tenvs=tenv,
+                    host_loop=True, **kw)
+            ok = ~bdfmod.to_host(res.fail[:n_real])
+            cells = idx[:n_real]
+            yf = bdfmod.to_host(res.ys[:n_real, -1, :])
+            self.X[:, cells[ok]] = yf[ok, :nS].T
+            if cfg.evolT:
+                self.Tgas[cells[ok]] = yf[ok, nS]
+            steps = int(bdfmod.to_host(res.n_steps[:n_real]).sum())
+        if not cfg.evolT:
             self._equilibrium_T(cells, ok, n_real)
-        return ok, int(res.n_steps[:n_real].sum()), res.n_rounds
+        return ok, steps, res.n_rounds
 
     def _shard_chemistry(self):
         """Whether the sweep shards its chunks over the ranks."""
@@ -954,55 +965,63 @@ class DiskModel:
         window are similarly stiff.  The cells go through the pool sweep,
         or with chem_stream=False, or with shard_chemistry on several
         ranks, through the chunked sweep (its chunks then sharded over the
-        ranks).  Returns the converged fraction."""
-        cfg = self.cfg
-        act = np.nonzero(self.grid.using)[0]
-        act = act[np.argsort(self.grid.n0[act])]
-        touts = bdfmod.log_output_times(cfg.dt_first, cfg.t_max,
-                                        cfg.ratio_tstep)
-        # initial Tgas guess (reference set_initial_condition_4solver,
-        # disk.f90:2014-2047): slightly above Tdust on first iteration
-        if iiter == 1:
-            self.Tgas = np.maximum(self.Tdust * 1.1 + 10.0, self.Tgas)
-            if cfg.depletion is not None:
-                from . import depletion as depl
-                self.say("  applying O/C depletion to initial abundances")
-                self.X = depl.apply_depletion(
-                    self.net, self.X, self.grid, self.grid.n0, self.Tgas,
-                    cfg.depletion, star_mass=cfg.star_mass,
-                    t_evol=cfg.t_max)
-        abun_prev = self.X.copy()
-        self.prepare_sweep_fields()
-        if not len(act):
-            pending = np.array([], dtype=np.int64)
-        elif cfg.chem_stream and not self._shard_chemistry():
-            pending = self._pool_sweep(act, touts)
-        else:
-            # the chunked sweep, its chunks sharded over several ranks
-            # (JAX driver.py:857-858)
-            pending = self._chunked_sweep(act, touts)
-        if self.group is not None:
-            # rank 0's sweep result on every rank
-            failed = np.zeros(self.grid.n_cells, bool)
-            failed[pending] = True
-            pending = np.nonzero(mesh.broadcast_array(
-                failed, group=self.group))[0]
-            self.X = mesh.broadcast_array(self.X, group=self.group)
-            self.Tgas = mesh.broadcast_array(self.Tgas, group=self.group)
-        self.quality[pending] += 512
-        if len(pending):
-            self.say(f"  {len(pending)} cells failed all "
-                     f"{cfg.nlocal_iter} tolerance levels (quality +512)")
-        # convergence bookkeeping on the 10 key species (reference
-        # check_convergency_cell, disk.f90:1901-1915)
-        ki = self.net.key_species_idx
-        d = np.abs(self.X[ki][:, act] - abun_prev[ki][:, act])
-        tol = cfg.atol_abun + cfg.rtol_abun * np.abs(
-            self.X[ki][:, act] + abun_prev[ki][:, act])
-        self.converged_cells = (d <= tol).all(axis=0)
-        frac = self.converged_cells.mean() if len(act) else 1.0
-        self.say(f"  converged cells: {self.converged_cells.sum()}"
-                 f"/{len(act)} ({frac * 100:.1f}%)")
+        ranks).  Returns the converged fraction.  The sweep is the kept
+        span chem.sweep (utils/spans.py): its table of spans, last in
+        spans.kept(), ends the sweep's log as a "chem spans" line (self
+        seconds / entries of each span)."""
+        with span("chem.sweep", keep=True):
+            cfg = self.cfg
+            act = np.nonzero(self.grid.using)[0]
+            act = act[np.argsort(self.grid.n0[act])]
+            touts = bdfmod.log_output_times(cfg.dt_first, cfg.t_max,
+                                            cfg.ratio_tstep)
+            # initial Tgas guess (reference set_initial_condition_4solver,
+            # disk.f90:2014-2047): slightly above Tdust on first iteration
+            if iiter == 1:
+                self.Tgas = np.maximum(self.Tdust * 1.1 + 10.0, self.Tgas)
+                if cfg.depletion is not None:
+                    from . import depletion as depl
+                    self.say("  applying O/C depletion to initial "
+                             "abundances")
+                    self.X = depl.apply_depletion(
+                        self.net, self.X, self.grid, self.grid.n0, self.Tgas,
+                        cfg.depletion, star_mass=cfg.star_mass,
+                        t_evol=cfg.t_max)
+            abun_prev = self.X.copy()
+            self.prepare_sweep_fields()
+            if not len(act):
+                pending = np.array([], dtype=np.int64)
+            elif cfg.chem_stream and not self._shard_chemistry():
+                pending = self._pool_sweep(act, touts)
+            else:
+                # the chunked sweep, its chunks sharded over several ranks
+                # (JAX driver.py:857-858)
+                pending = self._chunked_sweep(act, touts)
+            if self.group is not None:
+                # rank 0's sweep result on every rank
+                failed = np.zeros(self.grid.n_cells, bool)
+                failed[pending] = True
+                pending = np.nonzero(mesh.broadcast_array(
+                    failed, group=self.group))[0]
+                self.X = mesh.broadcast_array(self.X, group=self.group)
+                self.Tgas = mesh.broadcast_array(self.Tgas, group=self.group)
+            self.quality[pending] += 512
+            if len(pending):
+                self.say(f"  {len(pending)} cells failed all "
+                         f"{cfg.nlocal_iter} tolerance levels (quality +512)")
+            # convergence bookkeeping on the 10 key species (reference
+            # check_convergency_cell, disk.f90:1901-1915)
+            ki = self.net.key_species_idx
+            d = np.abs(self.X[ki][:, act] - abun_prev[ki][:, act])
+            tol = cfg.atol_abun + cfg.rtol_abun * np.abs(
+                self.X[ki][:, act] + abun_prev[ki][:, act])
+            self.converged_cells = (d <= tol).all(axis=0)
+            frac = self.converged_cells.mean() if len(act) else 1.0
+            self.say(f"  converged cells: {self.converged_cells.sum()}"
+                     f"/{len(act)} ({frac * 100:.1f}%)")
+        # the sweep's host time by span: self seconds / entries
+        self.say("  chem spans: " + ", ".join(
+            f"{k} {v[0]:.3f}s/{v[1]}" for k, v in spans.kept()[-1][1].items()))
         return frac
 
     # ------------------------------------------------------------------

@@ -23,6 +23,13 @@ pivoted LU) are the JAX package's other backends, and RAC2D_LU_BACKEND
 picks the default (``LU_BACKENDS``).  One f64 iterative-refinement step
 per solve (``n_refine``) recovers f64-level Newton corrections.
 
+The host time of the batch path is split into spans (``utils/spans.py``):
+each BDF round is ``chem.step``, inside it each Newton right-hand side
+``chem.rhs``, each Jacobian ``chem.jac``, ``_bfac`` ``chem.factor`` and
+``_bsolve`` ``chem.solve``; every read of the device back to the host and
+every all-reduce of a decision goes through ``_read`` or ``to_host``
+(``chem.sync``).
+
 With a process group (``group``, the record drivers), every host decision
 that couples lanes (the refresh branches, the round loop, the wall
 guard) is all-reduced over the group (``_any``), so that every rank of a
@@ -58,6 +65,7 @@ import torch
 from ..parallel import mesh
 from . import blocklu, kernels
 from .linalg import MPFactor, mp_factor, mp_solve
+from ..utils.spans import span
 from ..utils.tree import tree_map
 
 F64 = torch.float64
@@ -492,29 +500,32 @@ def _bfac(J, c, col_scale, lu_backend=None):
     """Batched row/col-equilibrated f32 factorization of I - c J.
 
     The equilibration is f64 torch; the factorization is lu_backend's
-    (kernel K1 by default).  Returns (row scales, col scales, factor)."""
+    (kernel K1 by default).  Returns (row scales, col scales, factor).
+    Its host time is the span chem.factor."""
     backend = lu_backend_of(lu_backend)
-    B, NEQ, _ = J.shape
-    eye = torch.eye(NEQ, dtype=J.dtype, device=J.device)
-    A = eye[None] - c[:, None, None] * J
-    Ac = A * col_scale[:, None, :]
-    amax = torch.amax(torch.abs(Ac), dim=2)
-    rs = torch.where(amax > 0.0, 1.0 / amax, 1.0)
-    As = (Ac * rs[:, :, None]).to(F32)
-    if backend == "block":
-        return rs, col_scale, blocklu.block_lu(As)
-    if backend == "xla":
-        return rs, col_scale, torch.linalg.lu_factor(As)
-    fac = kernels.block_lu_factor(As)
-    if backend == "inv":
-        return rs, col_scale, blocklu.block_invert(fac)
-    return rs, col_scale, fac
+    with span("chem.factor"):
+        B, NEQ, _ = J.shape
+        eye = torch.eye(NEQ, dtype=J.dtype, device=J.device)
+        A = eye[None] - c[:, None, None] * J
+        Ac = A * col_scale[:, None, :]
+        amax = torch.amax(torch.abs(Ac), dim=2)
+        rs = torch.where(amax > 0.0, 1.0 / amax, 1.0)
+        As = (Ac * rs[:, :, None]).to(F32)
+        if backend == "block":
+            return rs, col_scale, blocklu.block_lu(As)
+        if backend == "xla":
+            return rs, col_scale, torch.linalg.lu_factor(As)
+        fac = kernels.block_lu_factor(As)
+        if backend == "inv":
+            return rs, col_scale, blocklu.block_invert(fac)
+        return rs, col_scale, fac
 
 
 def _bsolve(J, c_lu, fac, b, n_refine=1, lu_backend=None):
     """Batched mixed-precision solve of (I - c_lu J) x = b: f32 solves
     through the factorization (kernel K2 or lu_backend's) with n_refine
-    steps of iterative refinement against the f64 residual."""
+    steps of iterative refinement against the f64 residual.  Its host
+    time is the span chem.solve."""
     backend = lu_backend_of(lu_backend)
     rs, cs, fac32 = fac
     if backend == "block":
@@ -534,9 +545,10 @@ def _bsolve(J, c_lu, fac, b, n_refine=1, lu_backend=None):
     def matvec(x):
         return x - c_lu[:, None] * torch.einsum("bij,bj->bi", J, x)
 
-    x = f32_solve(b)
-    for _ in range(n_refine):
-        x = x + f32_solve(b - matvec(x))
+    with span("chem.solve"):
+        x = f32_solve(b)
+        for _ in range(n_refine):
+            x = x + f32_solve(b - matvec(x))
     return x
 
 
@@ -562,19 +574,32 @@ def _batch_init(f_b, y0, t0, first_step, args) -> BDFBatchState:
         need_j=torch.ones(B, dtype=torch.bool, device=dev))
 
 
+def _read(fn, *args):
+    """fn(*args), a read of the device back to the host or an all-reduce
+    of a host decision, charged to the span chem.sync."""
+    with span("chem.sync"):
+        return fn(*args)
+
+
+def to_host(x):
+    """x as a host numpy array: one read of the device (chem.sync)."""
+    with span("chem.sync"):
+        return x.cpu().numpy()
+
+
 def _any(mask, group=None) -> bool:
     """Whether any entry of mask is true: on this batch, or with a process
     group over the batches of every rank (one all_reduce), so that every
     rank of a sharded solve takes the same branch."""
     if group is None:
-        return bool(torch.any(mask))
-    return mesh.any_rank(torch.any(mask), group)
+        return _read(bool, torch.any(mask))
+    return _read(mesh.any_rank, torch.any(mask), group)
 
 
 def _newton_tol_of(rtol, group=None):
-    rtol_min = float(torch.min(rtol))
+    rtol_min = _read(float, torch.min(rtol))
     if group is not None:
-        rtol_min = mesh.min_rank(rtol_min, group)
+        rtol_min = _read(mesh.min_rank, rtol_min, group)
     return max(10 * _EPS / max(rtol_min, 1e-15), min(0.03, math.sqrt(rtol_min)))
 
 
@@ -623,16 +648,17 @@ def _make_round_body(f_b: Callable, jac_b: Callable,
         drift = torch.abs(c / state.c_lu - 1.0) > DELTA_C_BATCH
         drift = drift | ~torch.isfinite(state.c_lu)
         if group is None:
-            refresh_j = bool(torch.any(active & state.need_j))
-            refresh_lu = refresh_j or bool(torch.any(active & drift))
+            refresh_j = _any(active & state.need_j)
+            refresh_lu = refresh_j or _any(active & drift)
         else:
             # both flags over every rank's lanes in one all_reduce
-            refresh_j, drifted = mesh.any_rank_each(torch.stack(
+            refresh_j, drifted = _read(mesh.any_rank_each, torch.stack(
                 [torch.any(active & state.need_j),
                  torch.any(active & drift)]), group)
             refresh_lu = refresh_j or drifted
         if refresh_j:
-            J = jac_b(y_pred, args)
+            with span("chem.jac"):
+                J = jac_b(y_pred, args)
             jfresh = torch.ones(B, dtype=torch.bool, device=D.device)
         else:
             J, jfresh = state.J, state.jfresh
@@ -655,9 +681,10 @@ def _make_round_body(f_b: Callable, jac_b: Callable,
         it = 0
         while it < NEWTON_MAXITER:
             going = active & ~converged & ~diverged
-            if not bool(torch.any(going)):
+            if not _any(going):
                 break
-            fy = f_b(y, args)
+            with span("chem.rhs"):
+                fy = f_b(y, args)
             nfe = nfe + going
             rhs = c[:, None] * fy - psi - d
             dy = _bsolve(J, c_lu, fac, rhs, n_refine, lu_backend)
@@ -775,8 +802,9 @@ def make_record(f_b: Callable, jac_b: Callable,
         k = 0
         while k < max_steps_per_interval \
                 and _any((state.t < tout) & ~state.fail, group):
-            state = round_body(state, tout, t_bound, rtol, atol, newton_tol,
-                               args)
+            with span("chem.step"):
+                state = round_body(state, tout, t_bound, rtol, atol,
+                                   newton_tol, args)
             k += 1
         record.rounds += k
         state = state._replace(fail=state.fail | (state.t < tout))
@@ -850,7 +878,7 @@ def bdf_solve_batch_host(f_b: Callable, jac_b: Callable, y0, t0, touts,
                 aborted = True
             t_prev = dt_iv
             if group is not None:
-                aborted = mesh.any_rank(aborted, group)
+                aborted = _read(mesh.any_rank, aborted, group)
         ts_l.append(t_rec)
         ys_l.append(y_rec)
         if progress_cb is not None:
@@ -913,26 +941,27 @@ def make_advance(f_b: Callable, jac_b: Callable,
         st, irec, since, ts, ys = cst
         ar = torch.arange(st.t.shape[0], device=st.t.device)
         k = 0
-        while k < max_rounds and bool(torch.any(~st.fail & (irec < n_out))):
-            was_active = (st.t < t_bound) & ~st.fail
-            st = round_body(st, t_bound, t_bound, rtol, atol, newton_tol,
-                            args)
-            since = since + was_active
-            while True:
-                ir = torch.clamp(irec, 0, n_out - 1)
-                tnext = touts[ir]
-                m = (irec < n_out) & (st.t >= tnext) & ~st.fail
-                if not bool(torch.any(m)):
-                    break
-                yi = interpolate(st.D, st.order, st.t, st.h, tnext)
-                ys[ar, ir] = torch.where(m[:, None], yi, ys[ar, ir])
-                ts[ar, ir] = torch.where(m, tnext, ts[ar, ir])
-                irec = irec + m
-                since = torch.where(m, 0, since)
-            # runaway guard (also catches lanes stalled at t_bound with
-            # records outstanding)
-            st = st._replace(fail=st.fail | ((irec < n_out)
-                                             & (since > max_steps_per_interval)))
+        while k < max_rounds and _any(~st.fail & (irec < n_out)):
+            with span("chem.step"):
+                was_active = (st.t < t_bound) & ~st.fail
+                st = round_body(st, t_bound, t_bound, rtol, atol, newton_tol,
+                                args)
+                since = since + was_active
+                while True:
+                    ir = torch.clamp(irec, 0, n_out - 1)
+                    tnext = touts[ir]
+                    m = (irec < n_out) & (st.t >= tnext) & ~st.fail
+                    if not _any(m):
+                        break
+                    yi = interpolate(st.D, st.order, st.t, st.h, tnext)
+                    ys[ar, ir] = torch.where(m[:, None], yi, ys[ar, ir])
+                    ts[ar, ir] = torch.where(m, tnext, ts[ar, ir])
+                    irec = irec + m
+                    since = torch.where(m, 0, since)
+                # runaway guard (also catches lanes stalled at t_bound
+                # with records outstanding)
+                st = st._replace(fail=st.fail | (
+                    (irec < n_out) & (since > max_steps_per_interval)))
             k += 1
         advance.rounds += k
         return ContState(st, irec, since, ts, ys)
@@ -1052,7 +1081,7 @@ def bdf_solve_batch_cont(f_b: Callable, jac_b: Callable, y0, t0, touts,
                         ("fail", st.fail), ("n_steps", st.n_steps),
                         ("n_feval", st.n_feval), ("n_jeval", st.n_jeval),
                         ("n_lu", st.n_lu), ("irec", cst.irec)):
-            res[name][w] = v.cpu().numpy()[real]
+            res[name][w] = to_host(v)[real]
         res["level"][w] = lvl[real]
 
     t_start = None
@@ -1060,8 +1089,8 @@ def bdf_solve_batch_cont(f_b: Callable, jac_b: Callable, y0, t0, touts,
     while True:
         cst = advance(cst, touts, t_bound, rtol_cur, atol_cur, args_cur,
                       rounds_per_call)
-        irec = cst.irec.cpu().numpy()
-        fail = cst.st.fail.cpu().numpy()
+        irec = to_host(cst.irec)
+        fail = to_host(cst.st.fail)
         now = time.time()
         if t_start is None:
             t_start = now
@@ -1080,7 +1109,7 @@ def bdf_solve_batch_cont(f_b: Callable, jac_b: Callable, y0, t0, touts,
                 atol_cur = _set_rows(atol_cur, rows, a_row)
             cst = _ladder_rollback(cst, retryable, touts, y0_cur, t0,
                                    first_step)
-            fail = cst.st.fail.cpu().numpy()
+            fail = to_host(cst.st.fail)
         done = (irec >= n_out) | fail
         if bool(done.all()) or wall_hit:
             if wall_hit:
@@ -1114,10 +1143,10 @@ def bdf_solve_batch_cont(f_b: Callable, jac_b: Callable, y0, t0, touts,
     open_m = np.arange(n_out)[None, :] >= irec[:, None]       # [B, n_out]
     last = np.clip(irec - 1, 0, n_out - 1)
     y_last = np.where((irec > 0)[:, None], res["ys"][np.arange(B), last],
-                      y0.cpu().numpy())
+                      to_host(y0))
     ys = np.where(open_m[:, :, None], y_last[:, None, :], res["ys"])
     ts = np.where(open_m, np.minimum(res["t_final"][:, None],
-                                     touts.cpu().numpy()[None, :]),
+                                     to_host(touts)[None, :]),
                   res["ts"])
     t = torch.as_tensor
     return BDFResult(
@@ -1193,19 +1222,18 @@ def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,
             return
         w = orig[slots]
         st = cst.st
-        irec_np = cst.irec.cpu().numpy()
+        irec_np = to_host(cst.irec)
         last = np.clip(irec_np[slots] - 1, 0, n_out - 1)
         sl = torch.as_tensor(slots, device=dev)
         la = torch.as_tensor(last, device=dev)
-        res["ys"][w] = cst.ys[sl, la].cpu().numpy()
-        res["ts"][w] = cst.ts[sl, la].cpu().numpy()
-        res["t_final"][w] = st.t.cpu().numpy()[slots]
-        res["fail"][w] = st.fail.cpu().numpy()[slots] \
-            | (irec_np[slots] < n_out)
-        res["n_steps"][w] = st.n_steps.cpu().numpy()[slots]
-        res["n_feval"][w] = st.n_feval.cpu().numpy()[slots]
-        res["n_jeval"][w] = st.n_jeval.cpu().numpy()[slots]
-        res["n_lu"][w] = st.n_lu.cpu().numpy()[slots]
+        res["ys"][w] = to_host(cst.ys[sl, la])
+        res["ts"][w] = to_host(cst.ts[sl, la])
+        res["t_final"][w] = to_host(st.t)[slots]
+        res["fail"][w] = to_host(st.fail)[slots] | (irec_np[slots] < n_out)
+        res["n_steps"][w] = to_host(st.n_steps)[slots]
+        res["n_feval"][w] = to_host(st.n_feval)[slots]
+        res["n_jeval"][w] = to_host(st.n_jeval)[slots]
+        res["n_lu"][w] = to_host(st.n_lu)[slots]
         res["level"][w] = level[slots]
 
     def refill(slots, pool_idx):
@@ -1249,8 +1277,8 @@ def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,
     while True:
         cst = advance(cst, touts, t_bound, rtol_cur, atol_cur, args_cur,
                       rounds_per_call)
-        irec = cst.irec.cpu().numpy()
-        fail = cst.st.fail.cpu().numpy()
+        irec = to_host(cst.irec)
+        fail = to_host(cst.st.fail)
         now = time.time()
         if t_start is None:
             t_start = now
@@ -1269,7 +1297,7 @@ def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,
                 atol_cur = _set_rows(atol_cur, rows, a_row)
             cst = _ladder_rollback(cst, retryable, touts, y0_cur, t0,
                                    first_step)
-            fail = cst.st.fail.cpu().numpy()
+            fail = to_host(cst.st.fail)
         done = (irec >= n_out) | fail
         if wall_hit:
             flush(np.arange(W))
@@ -1289,7 +1317,7 @@ def bdf_solve_batch_pool(f_b: Callable, jac_b: Callable, y0_pool, t0,
     # wall-aborted: pool entries never started stay failed with y0
     if next_i < N:
         rest = np.arange(next_i, N)
-        res["ys"][rest] = y0_pool.cpu().numpy()[rest]
+        res["ys"][rest] = to_host(y0_pool)[rest]
     t = torch.as_tensor
     return BDFResult(
         ts=t(res["ts"])[:, None], ys=t(res["ys"])[:, None, :],

@@ -32,10 +32,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import constants as c
 from ..io import bethell
+from ..utils.spans import span
 from . import geometry, optics
 from .optics import f32
 
@@ -981,16 +981,16 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
                               torch.as_tensor(en_all[a:b], device=dev),
                               minw, maxw)
 
-    with record_function("mc.launch"):
+    with span("mc.launch"):
         packets = launch(0, mb)
     pool = mb
     done = 0
     t_chunk = time.perf_counter()
     while done < max_steps:
         chunk = min(steps_per_call, max_steps - done)
-        with record_function("mc.walk"):
+        with span("mc.walk"):
             live = walk_fn(packets, tallies, chunk)
-        with record_function("mc.live_count"):
+        with span("mc.live_count"):
             n_active = int(live)
         st["chunks"] += 1
         done += chunk
@@ -1005,11 +1005,11 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
             break
         if pool + topup <= N and n_active <= mb - topup:
             # retire the dead lanes (fold + count), then top up
-            with record_function("mc.retire"):
+            with span("mc.retire"):
                 fold(packets, tallies, retired)
-            with record_function("mc.launch"):
+            with span("mc.launch"):
                 fresh = launch(pool, pool + topup)
-            with record_function("mc.refill"):
+            with span("mc.refill"):
                 packets = _refill_packets(packets, fresh, n_active)
             pool += topup
             st["refills"] += 1
@@ -1018,12 +1018,12 @@ def mc_pass_streamed(model: McModel, gen: torch.Generator, lam_all, en_all,
             tier = max(1 << int(np.ceil(np.log2(max(n_active, 1)))),
                        compact_floor)
             if tier < int(packets.status.shape[0]):
-                with record_function("mc.retire"):
+                with span("mc.retire"):
                     fold(packets, tallies, retired)
-                with record_function("mc.compact"):
+                with span("mc.compact"):
                     packets = _compact_packets(packets, tier)
                 st["compactions"] += 1
-    with record_function("mc.finish"):
+    with span("mc.finish"):
         _finish_pass(model, packets, tallies, use_mrw, mrw_lam_min, fold,
                      final)
         c = counts.tolist()
