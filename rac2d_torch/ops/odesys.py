@@ -7,6 +7,16 @@ here take a window of lanes at once: y[B, NEQ] with y[:, :n_species]
 fractional abundances and y[:, n_species] = Tgas (evolved only when a
 ThermalBalance is given and evolT is set, mirroring NEQ = nSpecies + 1 in
 the reference, src/chemistry.f90:1861).
+
+On a CUDA device the batch right-hand side that the solvers call
+(``_batch_fns``'s ``f_b``) is replayed from a CUDA graph: the instance
+captures ``make_f``'s kernels once per lane width (``RHS_GRAPHS``
+widths at most, a later width runs eager) into static buffers, and a
+call copies the state in, re-copies the problem data only where it is
+stale (``stale_leaves``), replays and returns a copy of the output.  The
+kernels and their arithmetic are the eager ones; only the host's
+dispatch of their launches (about 2250 a call at 256 lanes) goes.  On
+the CPU ``f_b`` is the eager closure.
 """
 
 from __future__ import annotations
@@ -15,12 +25,75 @@ import numpy as np
 import torch
 
 from ..io.umist import ChemNet
+from ..utils import spans
+from ..utils.spans import span
 from ..utils.tree import tree_map
 from . import bdf as bdfmod
 from .network import Incidence, build_incidence, jac_species, rhs_species
 from .rates import CellEnv, RateTables, build_rate_tables, compute_rates
 
 F64 = torch.float64
+
+# the most CUDA graphs of the batch right-hand side one ChemicalODE
+# captures (one per lane width: the pool's window, the chunked sweep's
+# chunk and its last partial chunk, a single cell); a call at a width
+# past them runs eager
+RHS_GRAPHS = 4
+# eager calls on a side stream before a capture (PyTorch's recipe: lazy
+# initialisation happens there, not in the graph)
+_WARMUP = 3
+
+
+def _leaves(tree):
+    """The tensor leaves of a tree (utils.tree), in tree_map's order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def stale_leaves(leaves, seen):
+    """Indices of the leaves whose static copies are out of date: a leaf
+    that is not the tensor copied last (seen[i] = (tensor, its _version
+    then)) or that was written in place since.  seen holds the tensors
+    themselves, so a freed tensor whose memory a new one reuses never
+    passes for the one copied."""
+    return [i for i, (a, (b, v)) in enumerate(zip(leaves, seen))
+            if a is not b or a._version != v]
+
+
+class _GraphedRHS:
+    """fn(y, args) at one shape, captured as a CUDA graph over static
+    buffers: the state y and a copy of every tensor leaf of args."""
+
+    def __init__(self, fn, y, args, pool):
+        leaves = _leaves(args)
+        self.y = y.clone()
+        self.leaves = [a.clone() for a in leaves]
+        self.seen = [(a, a._version) for a in leaves]
+        it = iter(self.leaves)
+        static_args = tree_map(lambda _: next(it), args)
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP):
+                fn(self.y, static_args)
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: a host read in fn fails the capture, while another
+        # thread's device calls (a process group's watchdog) do not
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.out = fn(self.y, static_args)
+
+    def __call__(self, y, leaves):
+        """The output at y, with args' tensor leaves `leaves`."""
+        for i in stale_leaves(leaves, self.seen):
+            self.leaves[i].copy_(leaves[i])
+            self.seen[i] = (leaves[i], leaves[i]._version)
+        self.y.copy_(y)
+        self.graph.replay()
+        return self.out.clone()
 
 
 class ChemicalODE:
@@ -44,21 +117,54 @@ class ChemicalODE:
         # ThermalBalance instance (ops.thermal); None = frozen temperature
         self.thermal = thermal
         self.key_idx = [int(i) for i in net.key_species_idx]
+        # the batch RHS's CUDA graphs by call shape (_graphed), sharing
+        # one memory pool; they outlive a solve
+        self._graphs: dict = {}
+        self._graph_pool = None
 
     def _batch_fns(self, evolT: bool):
         """(f_b, jac_b, sanity_b) for the batch solver.  args = (envs,
         tenvs, kb): for evolT=False the rate vectors kb[B, nR] are
         computed once per solve (T fixed -> k fixed); for evolT=True kb is
-        None and rates are evaluated at the live T."""
-        def f_b(yb, args):
+        None and rates are evaluated at the live T.  On a CUDA device f_b
+        replays a CUDA graph of itself (_graphed)."""
+        def f_eager(yb, args):
             envs, tenvs, kb = args
             return self.make_f(envs, evolT, tenvs, k=kb)(yb)
+
+        def f_b(yb, args):
+            if yb.is_cuda:
+                return self._graphed(f_eager, evolT, yb, args)
+            return f_eager(yb, args)
 
         def jac_b(yb, args):
             envs, tenvs, kb = args
             return self.make_jac(envs, evolT, tenvs, k=kb)(yb)
 
         return f_b, jac_b, self._sanity(evolT)
+
+    def _graphed(self, f_eager, evolT, yb, args):
+        """f_eager(yb, args) replayed from the graph of its shape, captured
+        on the first call at that shape while fewer than RHS_GRAPHS are
+        held (eager past them).  A failed capture raises.  A replay inside
+        a Newton right-hand side (the span chem.rhs) enters the marker span
+        chem.rhs.graph."""
+        leaves = _leaves(args)
+        key = (evolT, yb.shape, tuple(a is None for a in args),
+               tuple((a.shape, a.dtype) for a in leaves))
+        g = self._graphs.get(key)
+        with torch.cuda.device(yb.device):
+            if g is None:
+                if len(self._graphs) >= RHS_GRAPHS:
+                    return f_eager(yb, args)
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                g = self._graphs[key] = _GraphedRHS(f_eager, yb, args,
+                                                    self._graph_pool)
+            if spans.inside("chem.rhs"):
+                with span("chem.rhs.graph"):
+                    pass
+            return g(yb, leaves)
 
     def _rates(self, env, T):
         return compute_rates(self.tab, env, T, self.diff2des,

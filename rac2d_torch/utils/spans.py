@@ -37,6 +37,9 @@ per-layer metrics):
   ``chem.rhs`` (each Newton right-hand side), ``chem.jac`` (each
   Jacobian), ``chem.factor`` (``bdf._bfac``), ``chem.solve``
   (``bdf._bsolve``);
+- ``chem.rhs.graph``: a marker with an empty body, entered inside
+  ``chem.rhs`` once for each right-hand side replayed from its CUDA
+  graph (``ops/odesys.py``; never on the CPU);
 - ``chem.sync``: each device-to-host read and each all-reduce of a
   decision on the chemistry path (in ``chem.step`` and ``chem.pool``);
 - ``chem.eqT``: the equilibrium gas temperature (``evolT=False``);
@@ -134,6 +137,11 @@ def totals() -> dict[str, tuple[float, int]]:
     """{name: (self seconds, entries)} since the last reset()."""
     return {k: (v[0] / 1e9, v[1]) for k, v in _table.items()
             if v[0] or v[1]}
+
+
+def inside(name: str) -> bool:
+    """Whether the innermost open span is name."""
+    return bool(_stack) and _stack[-1] is _table.get(name)
 
 
 def kept() -> list[tuple[str, dict[str, tuple[float, int]]]]:
