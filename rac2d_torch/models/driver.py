@@ -838,7 +838,8 @@ class DiskModel:
         afresh, y = [X after the sweep, Tgas] and T0 = max(Tgas, 2) K,
         solve_equilibrium_T; a cell takes the new T only where it was
         both bracketed and solved (ok).  Its host time is the span
-        chem.eqT (the environments' assembly chem.envs)."""
+        chem.eqT (the environments' assembly chem.envs; inside the solve
+        chem.eqT.eval and chem.eqT.read)."""
         t0 = time.time()
         n_brk = 0
         with span("chem.eqT"):

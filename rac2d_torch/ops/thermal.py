@@ -34,6 +34,7 @@ from .. import defaults
 from ..io import tables
 from ..io.umist import ChemNet
 from ..utils.planck import tau2beta
+from ..utils.spans import span
 from .rates import CellEnv
 
 TINY = 1e-100
@@ -702,23 +703,32 @@ class ThermalBalance:
         lane whose loop condition no longer holds keeps its bracket while
         the others go on, so each lane gets the T it would get alone.  A
         step evaluates the net rate once a lane, at the bound that moves.
+
+        Each evaluation of the net rate (rates and heating minus cooling)
+        is the span chem.eqT.eval, and each loop test's read back to the
+        host the span chem.eqT.read (utils/spans.py).
         """
         from .rates import compute_rates
         nS = self.net.n_species
 
         def fnet(T):
-            k = compute_rates(tab, env, T, diff2des, h2_form_use_moeq)
-            yT = y
-            if y.shape[-1] == nS + 1:
-                yT = y.clone()
-                yT[:, nS] = T
-            return self.net_rate(yT, T, env, tenv, k)
+            with span("chem.eqT.eval"):
+                k = compute_rates(tab, env, T, diff2des, h2_form_use_moeq)
+                yT = y
+                if y.shape[-1] == nS + 1:
+                    yT = y.clone()
+                    yT[:, nS] = T
+                return self.net_rate(yT, T, env, tenv, k)
+
+        def any_lane(go):
+            with span("chem.eqT.read"):
+                return bool(go.any())
 
         x1, x2 = T0 / 1.1, T0 * 1.1
         f1, f2 = fnet(x1), fnet(x2)
         for _ in range(n_expand):
             go = f1 * f2 > 0.0
-            if not bool(go.any()):
+            if not any_lane(go):
                 break
             move1 = torch.abs(f1) < torch.abs(f2)
             x1n = torch.clamp_min(x1 + 0.5 * (x1 - x2), 1.0)
@@ -731,7 +741,7 @@ class ThermalBalance:
         for _ in range(n_bisect):
             # a lane without a bracket returns T0 whatever it bisects to
             go = bracketed & ((x2 - x1) > (rtol * 0.5 * (x1 + x2) + atol))
-            if not bool(go.any()):
+            if not any_lane(go):
                 break
             xm = 0.5 * (x1 + x2)
             fm = fnet(xm)

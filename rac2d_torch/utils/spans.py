@@ -42,7 +42,11 @@ per-layer metrics):
   graph (``ops/odesys.py``; never on the CPU);
 - ``chem.sync``: each device-to-host read and each all-reduce of a
   decision on the chemistry path (in ``chem.step`` and ``chem.pool``);
-- ``chem.eqT``: the equilibrium gas temperature (``evolT=False``);
+- ``chem.eqT``: the equilibrium gas temperature (``evolT=False``),
+  inside which ``chem.eqT.eval`` (each evaluation of the net heating:
+  rates and heating minus cooling, ``ThermalBalance.solve_equilibrium_T``)
+  and ``chem.eqT.read`` (each read back of its loops' tests); its
+  windows' environment assembly is ``chem.envs``;
 - ``mc.*``: the streamed Monte Carlo pass's stages (``ops/mcrt.py``).
 """
 

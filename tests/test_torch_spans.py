@@ -156,7 +156,8 @@ def test_sweep_spans(stream):
     assert name == "chem.sweep"
     assert {"chem.sweep", "chem.shield", "chem.envs", "chem.pool",
             "chem.step", "chem.rhs", "chem.jac", "chem.factor",
-            "chem.solve", "chem.sync", "chem.eqT"} == set(table)
+            "chem.solve", "chem.sync", "chem.eqT", "chem.eqT.eval",
+            "chem.eqT.read"} == set(table)
     rounds = m.pool_result.n_rounds if stream else m.chunk_rounds
     assert table["chem.step"][1] == rounds > 0
     assert table["chem.sweep"][1] == 1
@@ -172,3 +173,45 @@ def test_sweep_spans(stream):
     assert f"chem.step {table['chem.step'][0]:.3f}s/{rounds}" in line[0]
     assert {"mc.launch", "mc.walk", "mc.live_count", "mc.finish",
             "mc.rescale"} <= set(spans.totals())
+
+
+@pytest.mark.parametrize("T0, n_expand", [(20.0, 60), (3e4, 1)])
+def test_equilibrium_T_spans(monkeypatch, T0, n_expand):
+    """One solve_equilibrium_T call on two lanes enters chem.eqT.eval once
+    for each evaluation of the net rate and chem.eqT.read once for each
+    loop test read back to the host, counted by wrapping the solve's own
+    calls (ThermalBalance.net_rate, Tensor.any); with a bracket found the
+    loops end at their tests, and from T0 = 3e4 K with one expansion step
+    the expansion runs out after one evaluation and the bisection's first
+    test ends it."""
+    from test_torch_eq_temperature_ref import CELLS, port_inputs
+    p = port_inputs(CELLS[:2])
+    tb = p["tb"]
+    counts = {"eval": 0, "read": 0}
+
+    def net_rate(*a, **k):
+        counts["eval"] += 1
+        return type(tb).net_rate(tb, *a, **k)
+
+    any_ = torch.Tensor.any
+
+    def read(t, *a, **k):
+        counts["read"] += 1
+        return any_(t, *a, **k)
+
+    monkeypatch.setattr(tb, "net_rate", net_rate)
+    monkeypatch.setattr(torch.Tensor, "any", read)
+    spans.reset()
+    T, brk = tb.solve_equilibrium_T(
+        p["y"], p["env"], p["tenv"],
+        torch.full((2,), T0, dtype=torch.float64), p["tab"],
+        n_expand=n_expand)
+    monkeypatch.undo()
+    tot = {k: n for k, (_, n) in spans.totals().items()}
+    assert tot == {"chem.eqT.eval": counts["eval"],
+                   "chem.eqT.read": counts["read"]}
+    if n_expand == 1:
+        assert not brk.any() and counts == {"eval": 3, "read": 2}
+    else:
+        assert brk.all() and counts["eval"] >= 4
+        assert counts["read"] == counts["eval"]
