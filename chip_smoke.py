@@ -192,15 +192,20 @@ Phases (each prints its result and seconds; any failure exits non-zero):
      cells in one window of the pool sweep (in a fixed summation order, as
      (b)) with the ThermalBalance rebuilt
      with the Tdust LUT and all three exchange modes: ms/round and K1/K2
-     launches a round against (b)'s pool, the CUDA kernels one RHS and one
-     Jacobian evaluation launch with the modes off and on (torch.profiler),
+     launches a round against (b)'s pool, the CUDA kernels one eager RHS
+     and one eager Jacobian evaluation launch with the modes off and on
+     (torch.profiler; the solvers replay both as CUDA graphs),
      phase 11's physical bars, and every heating/cooling rate of 64 cells,
      card vs CPU from the same inputs, within 1e-9 relative (absolute
      floor 1e-40); (d) ChemicalODE.solve on the dark-cloud cell of
      tests/test_single_cell.py to 1e2 yr on the card and on the CPU (key
      species within 1%), and solve_batched(continuous=True, retry_tols=...)
      on phase 5's 3 COUPLED_CELLS to T_MAX, within 5% of phase 5's final
-     states.  Phase 14 aims at <= 300 s;
+     states; (e) one coupled Jacobian refresh at W lanes (jac_probe),
+     eager (make_jac) against its CUDA graph (_batch_fns's jac_b): the
+     host's time to enqueue a call and the device's time of a call, the
+     graph's capture, and the graphed J within 1e-12 of the eager one.
+     Phase 14 aims at <= 300 s;
  15. the last modules of the port: (a) the inv backend at phase 4's
      shapes (B 1024 and 256, n 485): K1 then blocklu.block_invert, its
      time and bound (getri's 4/3 n^3 flop), one inverse apply beside K2
@@ -2151,6 +2156,7 @@ SWEEP_CELLS = 512         # phase 14b: cells of phase 11's model
 SWEEP_W = 256             # the pool's width and the chunk (chem_chunk)
 SWEEP_CHUNK_WALL_S = 150.0  # chunk_wall_s of both sweeps
 RATE_CELLS = 64           # phase 14c: cells whose rates are held card vs CPU
+JAC_REPS = 5              # phase 14e: calls timed a side
 # phase 14d: the dark-cloud cell of tests/test_single_cell.py
 DARK_CLOUD = dict(Tgas=10.0, Tdust=10.0, n_gas=2e4, Av_toISM=10.0,
                   Av_toStar=10.0, G0_UV_toISM=1.0, GrainRadius_CGS=1e-5,
@@ -2390,15 +2396,15 @@ def exchange_window(m, dev, pool, cells, snap):
     # the kernels an RHS and a Jacobian evaluation launch, modes off / on
     env, tenv = m.assemble_envs(win)
     y = m._t(np.concatenate([m.X[:, win].T, m.Tgas[win][:, None]], axis=1))
-    args = (env, tenv, None)
     counts = {}
     for name, ode in (("off", off), ("on", m.ode)):
-        # the eager RHS: the solvers' f_b replays it as one CUDA graph
+        # the eager closures: the solvers' f_b and jac_b replay them as
+        # CUDA graphs
         f = ode.make_f(env, True, tenv)
-        _, jac_b, _ = ode._batch_fns(True)
+        jac = ode.make_jac(env, True, tenv)
         try:
             counts[name] = (kernel_launches(lambda: f(y)),
-                            kernel_launches(lambda: jac_b(y, args)))
+                            kernel_launches(lambda: jac(y)))
         except Exception as e:          # noqa: BLE001 (reported, no check)
             counts[name] = (f"not measured ({type(e).__name__})",) * 2
     say(f"phase 14c CUDA kernels launched by one RHS / one Jacobian "
@@ -2441,6 +2447,78 @@ def exchange_window(m, dev, pool, cells, snap):
     m.ode, m.thermal, cfg.hc = off, off.thermal, thermal.HcConfig()
     say(f"phase 14c done: {time.time() - t_ph:.1f} s")
     return r["K1"], r["K2"]
+
+
+def jac_probe(dev, width=W, reps=JAC_REPS):
+    """Phase 14e: one Jacobian refresh of the coupled system (evolT) at
+    `width` lanes of bench_cells' recipe in their initial abundances,
+    eager (ChemicalODE.make_jac's closure) against its CUDA graph
+    (_batch_fns's jac_b, captured at its first call): the mean host ms to
+    enqueue a call and the mean ms of a call by CUDA events.  The graph's
+    calls are queued behind a spin that outlasts the host (queued_ms), so
+    their event time is the device's alone; the eager closure's 4600
+    launches a call overfill CUDA's launch queue behind any spin, so its
+    event time is taken without one (cuda_ms) and is the host's pace
+    wherever that is the slower.  Also the capture's seconds, and the
+    graphed J's species block and key-species T row within 1e-12 relative
+    of the eager one over their non-zero entries; of the FD T column,
+    which CUDA's atomic sums keep an eager call from reproducing itself,
+    the largest gap over its lane's largest entry is printed.
+    Returns {"eager": (device ms, host ms), "graph": (...), "capture_s"}.
+    Runs alone as
+    python3 -c 'import chip_smoke as c, torch; c.jac_probe(torch.device("cuda"))'."""
+    from rac2d_torch import defaults
+    from rac2d_torch.io import umist
+    from rac2d_torch.ops import odesys
+    from rac2d_torch.ops.thermal import ThermalBalance
+    net = umist.load_network(defaults.NETWORK,
+                             enthalpy_path=defaults.ENTHALPIES)
+    y0 = umist.load_initial_abundances(net, defaults.INIT_ABUNDANCES)
+    envs, tenvs, Tg = bench_cells(width, 0, dev)
+    y = torch.as_tensor(np.concatenate(
+        [np.tile(y0, (width, 1)), Tg[:, None]], axis=1), device=dev)
+    ode = odesys.ChemicalODE(net, thermal=ThermalBalance(net, device=dev),
+                             device=dev)
+    jac = ode.make_jac(envs, True, tenvs)
+    _, jac_b, _ = ode._batch_fns(True)
+    args = (envs, tenvs, None)
+    ref = jac(y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = jac_b(y, args)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    nS, ki = ode.n_species, ode.key_idx
+    err = max(rel_nonzero(out[:, :nS, :nS], ref[:, :nS, :nS]),
+              rel_nonzero(out[:, nS, ki], ref[:, nS, ki]))
+    if not err <= 1e-12:
+        raise Fail(f"phase 14e: the graphed Jacobian differs from the "
+                   f"eager one by {err:.3e} relative")
+    col = float(((out[:, :, nS] - ref[:, :, nS]).abs().amax(1)
+                 / ref[:, :, nS].abs().amax(1)).max())
+    del out, ref
+
+    def eager_call():
+        jac(y)
+    res = {"capture_s": capture_s,
+           "eager": (cuda_ms(eager_call, reps), host_ms(eager_call, reps)),
+           "graph": queued_ms([lambda: jac_b(y, args)] * reps)}
+    say(f"phase 14e one coupled Jacobian refresh at {width} lanes, mean of "
+        f"{reps}: eager host {res['eager'][1]:.3f} ms, events "
+        f"{res['eager'][0]:.3f} ms; graph host {res['graph'][1]:.3f} ms, "
+        f"device {res['graph'][0]:.3f} ms; capture {capture_s:.2f} s; "
+        f"graph vs eager {err:.3e} relative (species block, T row), T "
+        f"column {col:.3e} of its lane's largest")
+    return res
+
+
+def rel_nonzero(a, b):
+    """The largest |a - b| / |b| over the entries where b is not 0 (inf
+    where the two differ in which entries are 0)."""
+    nz = b != 0.0
+    if not torch.equal(a != 0.0, nz):
+        return float("inf")
+    return float(((a - b).abs()[nz] / b.abs()[nz]).max())
 
 
 def other_drivers(dev, phase5_states):
@@ -3137,6 +3215,10 @@ def _main(keep):
         t0 = time.time()
         other_drivers(dev, phase5_states)
         walls14["14d"] = time.time() - t0
+        t0 = time.time()
+        jac_probe(dev)
+        walls14["14e"] = time.time() - t0
+        torch.cuda.empty_cache()
         say(f"phase 14 done: {time.time() - t14:.1f} s (aim <= "
             f"{PHASE14_AIM_S:g} s); " + ", ".join(
                 f"{k} {v:.1f} s" for k, v in walls14.items()))

@@ -8,15 +8,16 @@ fractional abundances and y[:, n_species] = Tgas (evolved only when a
 ThermalBalance is given and evolT is set, mirroring NEQ = nSpecies + 1 in
 the reference, src/chemistry.f90:1861).
 
-On a CUDA device the batch right-hand side that the solvers call
-(``_batch_fns``'s ``f_b``) is replayed from a CUDA graph: the instance
-captures ``make_f``'s kernels once per lane width (``RHS_GRAPHS``
-widths at most, a later width runs eager) into static buffers, and a
-call copies the state in, re-copies the problem data only where it is
-stale (``stale_leaves``), replays and returns a copy of the output.  The
+On a CUDA device the batch right-hand side and Jacobian that the
+solvers call (``_batch_fns``'s ``f_b`` and ``jac_b``) are replayed from
+CUDA graphs: the instance captures ``make_f``'s and ``make_jac``'s
+kernels once per lane width (``RHS_GRAPHS`` and ``JAC_GRAPHS`` widths at
+most, a later width runs eager) into static buffers, and a call copies
+the state in, re-copies the problem data only where it is stale
+(``stale_leaves``), replays and returns a copy of the output.  The
 kernels and their arithmetic are the eager ones; only the host's
-dispatch of their launches (about 2250 a call at 256 lanes) goes.  On
-the CPU ``f_b`` is the eager closure.
+dispatch of their launches (about 2250 an RHS and 4600 a coupled
+Jacobian at 256 lanes) goes.  On the CPU both are the eager closures.
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ F64 = torch.float64
 # chunk and its last partial chunk, a single cell); a call at a width
 # past them runs eager
 RHS_GRAPHS = 4
+# the same for the batch Jacobian, counted apart, so that capturing a
+# Jacobian never leaves an RHS width eager
+JAC_GRAPHS = 4
 # eager calls on a side stream before a capture (PyTorch's recipe: lazy
 # initialisation happens there, not in the graph)
 _WARMUP = 3
@@ -61,7 +65,7 @@ def stale_leaves(leaves, seen):
             if a is not b or a._version != v]
 
 
-class _GraphedRHS:
+class _Graphed:
     """fn(y, args) at one shape, captured as a CUDA graph over static
     buffers: the state y and a copy of every tensor leaf of args."""
 
@@ -117,8 +121,12 @@ class ChemicalODE:
         # ThermalBalance instance (ops.thermal); None = frozen temperature
         self.thermal = thermal
         self.key_idx = [int(i) for i in net.key_species_idx]
-        # the batch RHS's CUDA graphs by call shape (_graphed), sharing
-        # one memory pool; they outlive a solve
+        # make_jac's key-species row indices, built once on the device (a
+        # host-to-device copy cannot be captured in a CUDA graph)
+        self._key_idx_t = torch.as_tensor(self.key_idx, device=self.device)
+        self._key_rows = torch.arange(len(self.key_idx), device=self.device)
+        # the batch RHS's and Jacobian's CUDA graphs by closure and call
+        # shape (_graphed), sharing one memory pool; they outlive a solve
         self._graphs: dict = {}
         self._graph_pool = None
 
@@ -127,42 +135,47 @@ class ChemicalODE:
         tenvs, kb): for evolT=False the rate vectors kb[B, nR] are
         computed once per solve (T fixed -> k fixed); for evolT=True kb is
         None and rates are evaluated at the live T.  On a CUDA device f_b
-        replays a CUDA graph of itself (_graphed)."""
+        and jac_b replay CUDA graphs of themselves (_graphed)."""
         def f_eager(yb, args):
             envs, tenvs, kb = args
             return self.make_f(envs, evolT, tenvs, k=kb)(yb)
 
-        def f_b(yb, args):
-            if yb.is_cuda:
-                return self._graphed(f_eager, evolT, yb, args)
-            return f_eager(yb, args)
-
-        def jac_b(yb, args):
+        def jac_eager(yb, args):
             envs, tenvs, kb = args
             return self.make_jac(envs, evolT, tenvs, k=kb)(yb)
 
-        return f_b, jac_b, self._sanity(evolT)
+        def on_card(kind, cap, fn):
+            def batch(yb, args):
+                if yb.is_cuda:
+                    return self._graphed(kind, cap, fn, evolT, yb, args)
+                return fn(yb, args)
+            return batch
 
-    def _graphed(self, f_eager, evolT, yb, args):
-        """f_eager(yb, args) replayed from the graph of its shape, captured
-        on the first call at that shape while fewer than RHS_GRAPHS are
-        held (eager past them).  A failed capture raises.  A replay inside
-        a Newton right-hand side (the span chem.rhs) enters the marker span
-        chem.rhs.graph."""
+        return (on_card("chem.rhs", RHS_GRAPHS, f_eager),
+                on_card("chem.jac", JAC_GRAPHS, jac_eager),
+                self._sanity(evolT))
+
+    def _graphed(self, kind, cap, fn, evolT, yb, args):
+        """fn(yb, args) replayed from the graph of its kind ("chem.rhs" or
+        "chem.jac", the span its solver calls it in) and shape, captured on
+        the first call at that shape while fewer than `cap` graphs of the
+        kind are held (eager past them).  A failed capture raises.  A
+        replay inside the span `kind` enters the marker span kind +
+        ".graph"."""
         leaves = _leaves(args)
-        key = (evolT, yb.shape, tuple(a is None for a in args),
+        key = (kind, evolT, yb.shape, tuple(a is None for a in args),
                tuple((a.shape, a.dtype) for a in leaves))
         g = self._graphs.get(key)
         with torch.cuda.device(yb.device):
             if g is None:
-                if len(self._graphs) >= RHS_GRAPHS:
-                    return f_eager(yb, args)
+                if sum(k[0] == kind for k in self._graphs) >= cap:
+                    return fn(yb, args)
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
-                g = self._graphs[key] = _GraphedRHS(f_eager, yb, args,
-                                                    self._graph_pool)
-            if spans.inside("chem.rhs"):
-                with span("chem.rhs.graph"):
+                g = self._graphs[key] = _Graphed(fn, yb, args,
+                                                 self._graph_pool)
+            if spans.inside(kind):
+                with span(kind + ".graph"):
                     pass
             return g(yb, leaves)
 
@@ -228,11 +241,11 @@ class ChemicalODE:
                 col = (f2[B:] - f0) / dT[:, None]
                 d2h = env.ratioDust2HnucNum
                 nk = len(self.key_idx)
-                ki = torch.as_tensor(self.key_idx, device=y.device)
+                ki = self._key_idx_t
                 yi = y[:, ki].T                               # [nk, B]
                 dy = yi * 1e-2 + d2h * 1e-6
                 yp = y.repeat(nk, 1, 1)                       # [nk, B, NEQ]
-                yp[torch.arange(nk), :, ki] = yi + dy
+                yp[self._key_rows, :, ki] = yi + dy
                 td = self.thermal.dTdt(yp.reshape(nk * B, -1), T.repeat(nk),
                                        rep(env, nk), rep(tenv, nk),
                                        k.repeat(nk, 1)).reshape(nk, B)

@@ -20,70 +20,14 @@ width past RHS_GRAPHS, which runs eager; the marker chem.rhs.graph
 counts one entry per replay inside chem.rhs and none for an eager call.
 """
 
-import numpy as np
 import pytest
 import torch
 
-from rac2d_torch import defaults
-from rac2d_torch.io import umist
 from rac2d_torch.ops import odesys
-from rac2d_torch.ops.rates import CellEnv
-from rac2d_torch.ops.thermal import ThermalBalance, ThermalEnv
 from rac2d_torch.utils import spans
 from rac2d_torch.utils.spans import span
-from rac2d_torch.utils.tree import stack
-
-F64 = torch.float64
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests marked `cuda`; decided when the test runs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest "
-                    "-m cuda tests/test_torch_rhs_graph.py` on the card")
-    return torch.device("cuda")
-
-
-@pytest.fixture(scope="module")
-def net():
-    n = umist.load_network(defaults.NETWORK,
-                           enthalpy_path=defaults.ENTHALPIES)
-    return n, umist.load_initial_abundances(n, defaults.INIT_ABUNDANCES)
-
-
-def ode_on(net, device):
-    n, _ = net
-    return odesys.ChemicalODE(n, thermal=ThermalBalance(n, device=device),
-                              device=device)
-
-
-def inputs(net, W, seed, device):
-    """(y [W, NEQ], args) for W lanes of distinct environments and states
-    drawn from seed."""
-    _, y0 = net
-    rng = np.random.default_rng(seed)
-    envs = stack([CellEnv.default(
-        device, Tgas=T, Tdust=0.8 * T, n_gas=ng, Av_toISM=av,
-        G0_UV_toStar=g0, zeta_Xray_H2=1e-16)
-        for T, ng, av, g0 in zip(rng.uniform(15.0, 300.0, W),
-                                 10.0 ** rng.uniform(4.0, 9.0, W),
-                                 rng.uniform(0.1, 5.0, W),
-                                 10.0 ** rng.uniform(0.0, 3.0, W))])
-    tenvs = stack([ThermalEnv.default(device) for _ in range(W)])
-    ys = y0[None] * 10.0 ** rng.uniform(-0.5, 0.5, (W, len(y0)))
-    T = rng.uniform(15.0, 300.0, (W, 1))
-    y = torch.as_tensor(np.concatenate([ys, T], axis=1), dtype=F64,
-                        device=device)
-    return y, (envs, tenvs, None)
-
-
-def rel_nonzero(a, b):
-    """The largest |a - b| / |b| over the entries where b is not 0."""
-    a, b = a.cpu(), b.cpu()
-    nz = b != 0.0
-    assert torch.equal(a != 0.0, nz)
-    return float(((a - b).abs()[nz] / b.abs()[nz]).max())
+from torch_graph_fixtures import (cuda_device, entries, inputs,  # noqa: F401
+                                  net, ode_on, rel_nonzero)
 
 
 def eager(ode, y, args):
@@ -92,7 +36,7 @@ def eager(ode, y, args):
 
 
 def replays():
-    return spans.totals().get("chem.rhs.graph", (0.0, 0))[1]
+    return entries("chem.rhs.graph")
 
 
 def test_stale_check_fires_on_a_swapped_or_written_leaf_only():
