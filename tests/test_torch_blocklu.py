@@ -25,6 +25,8 @@ import torch
 from rac2d_tpu.ops import blocklu as jblu
 from rac2d_torch.ops import blocklu as tblu
 
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _well_conditioned(B, n, rng, dtype=np.float64):
     A = rng.standard_normal((B, n, n)).astype(dtype)

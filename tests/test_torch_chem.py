@@ -22,6 +22,7 @@ import torch
 
 from test_chem_production import COUPLED_CELLS
 from test_parity_oracle import POINTS, _env_pairs
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 CELLS = POINTS + COUPLED_CELLS
 D2G = 2.8e-12

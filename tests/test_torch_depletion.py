@@ -17,6 +17,7 @@ from rac2d_torch import defaults
 from rac2d_torch.io import umist
 
 from torch_mc_fixtures import disk_cfg
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-12
 

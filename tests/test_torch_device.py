@@ -6,8 +6,11 @@
 - Without CUDA, a call that names no device raises rather than run on
   the CPU (decided inside the test, never when this file is imported).
 - The port imports neither JAX nor the JAX package.
+- Every port test module (tests/test_torch_*.py) runs torch on one CPU
+  thread through the shared ``one_torch_thread`` fixture.
 """
 
+import ast
 import importlib
 import inspect
 import pathlib
@@ -20,6 +23,8 @@ import pytest
 import torch
 
 import rac2d_torch
+
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -148,6 +153,21 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_every_port_test_module_takes_one_torch_thread():
+    """Each tests/test_torch_*.py imports the autouse fixture
+    torch_mc_fixtures.one_torch_thread at module level: the suite runs
+    several pytest workers on the same cores, and torch's default
+    intra-op threads, one per core in each worker, oversubscribe them."""
+    def takes_it(path):
+        return any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_mc_fixtures"
+                   and "one_torch_thread" in [a.name for a in node.names]
+                   for node in ast.parse(path.read_text()).body)
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert files
+    assert [p.name for p in files if not takes_it(p)] == []
 
 
 def test_cli_device_defaults_to_the_card(tmp_path):

@@ -11,7 +11,7 @@ Held to the JAX package's bars (tests/test_blocklu.py:92-132):
 - the RAC2D_LU_BACKEND mapping ("auto" and "pallas" are the kernels,
   "block", "inv" and "xla" their namesakes; an unknown value raises);
 - a 2-lane coupled pool sweep to 1e-3 yr on "inv" against "block", within
-  the slice bars of tests/test_torch_slice.py (key species within 5%
+  the bars of tests/test_torch_pool_sweep.py (key species within 5%
   where > 1e-12, Tgas within 2%) and with the same failed lanes.
 """
 

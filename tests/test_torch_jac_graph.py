@@ -38,6 +38,7 @@ from rac2d_torch.utils import spans
 from rac2d_torch.utils.spans import span
 from torch_graph_fixtures import (cuda_device, entries, inputs,  # noqa: F401
                                   net, ode_on, rel_nonzero, small_net)
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def with_rates(ode, evolT, y, args):

@@ -28,6 +28,8 @@ from rac2d_torch.models import density, driver
 from rac2d_torch.models.grid import GridConfig
 from rac2d_torch.ops import bdf, blocklu, kernels, mcrt, optics
 
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture
 def cuda_device():

@@ -25,6 +25,8 @@ from rac2d_torch import convert
 from rac2d_torch.ops import geometry as tgeo
 from rac2d_torch.ops import optics as toptics
 
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _grid():
     a = AndrewsDisk(Md=0.01, rin=1.0, rout=50.0, rc=20.0, hc=5.0)

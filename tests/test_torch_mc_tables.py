@@ -37,6 +37,7 @@ from rac2d_torch.ops import mcrt as tmcrt
 from rac2d_torch.ops import optics as toptics
 
 from torch_mc_fixtures import disk_cfg, torch_model, warm_tdust
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 DISK = dict(Md=0.01, rin=1.0, rout=100.0, rc=50.0, hc=10.0)
 GRID = dict(rmin=1.0, rmax=100.0, zmax=100.0, ncol=24,

@@ -21,6 +21,8 @@ from rac2d_torch import constants as tc
 from rac2d_torch import postprocess as tpp
 from rac2d_torch.io import fits as tfits
 
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 PKGS = ((jpp, jc), (tpp, tc))
 
 

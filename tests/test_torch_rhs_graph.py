@@ -28,6 +28,7 @@ from rac2d_torch.utils import spans
 from rac2d_torch.utils.spans import span
 from torch_graph_fixtures import (cuda_device, entries, inputs,  # noqa: F401
                                   net, ode_on, rel_nonzero)
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
 
 
 def eager(ode, y, args):

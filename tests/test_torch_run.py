@@ -6,8 +6,8 @@
     into the port (convert.model_state), and both run chemistry_step(1).
     The same failed cells, quality and converged mask; key species within
     5% where |X| > 1e-12 and Tgas within 2% (the bars of
-    tests/test_torch_slice.py::test_coupled_pool_sweep_matches_jax); some
-    abundance above 1e-12 moved by more than 10% in the port.  The
+    tests/test_torch_pool_sweep.py::test_coupled_pool_sweep_matches_jax);
+    some abundance above 1e-12 moved by more than 10% in the port.  The
     MC noise stays out of the comparison.  The default run cuts the grid
     to one column (4 active cells), runs to 1e-2 yr, and streams the cells
     through a window of 2 (chem_chunk): the JAX package refills the window

@@ -15,6 +15,8 @@ import torch
 from rac2d_torch.utils import interp as ti
 from rac2d_tpu.utils import interp as ji
 
+from torch_mc_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL = 1e-12
 
 

@@ -1,6 +1,7 @@
 """Shared inputs of the Monte Carlo parity tests (tests/test_torch_mc_*.py):
 the same small disk and the same hand-built one-cell gray model for the
-JAX package and its PyTorch port."""
+JAX package and its PyTorch port; and the one-thread fixture that every
+port test module (tests/test_torch_*.py) imports."""
 
 import numpy as np
 import pytest
@@ -13,9 +14,11 @@ from rac2d_torch.ops import mcrt as tmcrt
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """Run the module's torch ops on one CPU thread (autouse where a test
-    module imports it).  The plain walk is hundreds of small ops a step;
-    with several pytest workers on the same cores, torch's intra-op
-    threads contend and a 40000-packet pass runs 20x slower."""
+    module imports it; every tests/test_torch_*.py does, and
+    tests/test_torch_device.py checks that).  The plain walk is hundreds
+    of small ops a step; with several pytest workers on the same cores,
+    torch's intra-op threads contend and a 40000-packet pass runs 20x
+    slower."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
